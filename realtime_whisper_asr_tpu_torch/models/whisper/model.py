@@ -1,0 +1,322 @@
+"""Whisper encoder-decoder in PyTorch: the dense inference path.
+
+Port of ``realtime_whisper_asr_tpu/models/whisper/model.py`` with the same
+numerics, in PyTorch idiom:
+
+- ``nn.Module``s with an ``nn.ModuleList`` of blocks where the JAX package
+  stacks the layers and runs ``lax.scan``;
+- f32 islands inside a configurable compute dtype (bf16 on the card):
+  layer norm, attention scores and softmax, and the logits head are computed
+  in f32, as the JAX package's ``preferred_element_type=f32`` does;
+- the self-attention projections are fused into one ``qkv`` linear (the JAX
+  package's inference path always runs ``quant.fuse_qkv``);
+- the decoder's self-attention K/V cache is written in place at the decode
+  position (JAX writes a new cache array per step);
+- cross-attention weights are captured through the alignment mask for DTW
+  word timestamps (timestamps.py).
+
+The public functions keep the JAX package's layouts: mel (B, T, n_mels),
+encoder output (B, T/2, d), caches (L, B, H, T, Dh), logits f32.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import dataclasses
+import math
+from typing import Optional
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from realtime_whisper_asr_tpu_torch.device import resolve_device
+from realtime_whisper_asr_tpu_torch.models.whisper.config import WhisperConfig
+
+_NEG = -1e9  # additive mask value (as the JAX package)
+
+
+class LayerNorm(nn.LayerNorm):
+    """Layer norm computed in f32 and cast back to the input's dtype."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return F.layer_norm(x.float(), self.normalized_shape, self.weight.float(),
+                            self.bias.float(), self.eps).to(x.dtype)
+
+
+@contextlib.contextmanager
+def _no_tf32_conv():
+    """cuDNN runs f32 convolutions in TF32 unless told otherwise (PyTorch's
+    default); the stem keeps IEEE f32 so an f32 model computes the function
+    the parity checks hold against the JAX package, whatever the process-wide
+    setting. cuBLAS f32 matmuls are IEEE by PyTorch's default."""
+    prev = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.allow_tf32 = prev
+
+
+def _split_heads(x: torch.Tensor, n_head: int) -> torch.Tensor:
+    b, t, d = x.shape
+    return x.view(b, t, n_head, d // n_head).transpose(1, 2)  # (B,H,T,Dh)
+
+
+def _merge_heads(x: torch.Tensor) -> torch.Tensor:
+    b, h, t, dh = x.shape
+    return x.transpose(1, 2).reshape(b, t, h * dh)
+
+
+def _attend(q, k, v, mask: Optional[torch.Tensor] = None, return_weights: bool = False):
+    """q (B,H,Tq,Dh), k/v (B,H,Tk,Dh); additive f32 mask. Scores and softmax
+    in f32 (a bf16 matmul would round the scores to bf16); the weights are
+    cast to v's dtype for the value product, as the JAX package does."""
+    scale = q.shape[-1] ** -0.5
+    scores = torch.matmul(q.float(), k.float().transpose(-1, -2)) * scale
+    if mask is not None:
+        scores = scores + mask
+    w = torch.softmax(scores, dim=-1)
+    out = torch.matmul(w.to(v.dtype), v)
+    return out, (w if return_weights else None)
+
+
+class SelfAttention(nn.Module):
+    def __init__(self, d: int, n_head: int, **factory):
+        super().__init__()
+        self.n_head = n_head
+        self.qkv = nn.Linear(d, 3 * d, **factory)  # fused wq|wk|wv, bias bq|0|bv
+        self.out = nn.Linear(d, d, **factory)
+
+    def project(self, x: torch.Tensor):
+        q, k, v = self.qkv(x).chunk(3, dim=-1)
+        return (_split_heads(q, self.n_head), _split_heads(k, self.n_head),
+                _split_heads(v, self.n_head))
+
+
+class CrossAttention(nn.Module):
+    def __init__(self, d: int, n_head: int, **factory):
+        super().__init__()
+        self.n_head = n_head
+        self.query = nn.Linear(d, d, **factory)
+        self.key = nn.Linear(d, d, bias=False, **factory)
+        self.value = nn.Linear(d, d, **factory)
+        self.out = nn.Linear(d, d, **factory)
+
+
+class Block(nn.Module):
+    """Pre-LN transformer block; decoder blocks add cross-attention."""
+
+    def __init__(self, d: int, n_head: int, cross: bool, **factory):
+        super().__init__()
+        self.attn_ln = LayerNorm(d, **factory)
+        self.attn = SelfAttention(d, n_head, **factory)
+        if cross:
+            self.cross_ln = LayerNorm(d, **factory)
+            self.cross = CrossAttention(d, n_head, **factory)
+        self.mlp_ln = LayerNorm(d, **factory)
+        self.fc1 = nn.Linear(d, 4 * d, **factory)
+        self.fc2 = nn.Linear(4 * d, d, **factory)
+
+    def mha_block(self, x: torch.Tensor) -> torch.Tensor:
+        """Unmasked full-sequence self-attention (the encoder's)."""
+        q, k, v = self.attn.project(self.attn_ln(x))
+        o, _ = _attend(q, k, v)
+        return x + self.attn.out(_merge_heads(o))
+
+    def mlp_block(self, x: torch.Tensor) -> torch.Tensor:
+        h = F.gelu(self.fc1(self.mlp_ln(x)))  # exact (erf) GELU
+        return x + self.fc2(h)
+
+
+def _sinusoids(length: int, channels: int) -> np.ndarray:
+    """Whisper's fixed sinusoidal positional embedding for the encoder."""
+    assert channels % 2 == 0
+    log_timescale_increment = math.log(10000.0) / (channels // 2 - 1)
+    inv_timescales = np.exp(-log_timescale_increment * np.arange(channels // 2))
+    scaled = np.arange(length)[:, None] * inv_timescales[None, :]
+    return np.concatenate([np.sin(scaled), np.cos(scaled)], axis=1).astype(np.float32)
+
+
+class AudioEncoder(nn.Module):
+    def __init__(self, cfg: WhisperConfig, **factory):
+        super().__init__()
+        d = cfg.n_audio_state
+        self.conv1 = nn.Conv1d(cfg.n_mels, d, 3, padding=1, **factory)
+        self.conv2 = nn.Conv1d(d, d, 3, stride=2, padding=1, **factory)
+        self.register_buffer("pos_emb", torch.empty(cfg.n_audio_ctx, d, **factory))
+        self.blocks = nn.ModuleList(
+            Block(d, cfg.n_audio_head, cross=False, **factory) for _ in range(cfg.n_audio_layer))
+        self.ln_post = LayerNorm(d, **factory)
+
+    def stem(self, mel: torch.Tensor) -> torch.Tensor:
+        """Conv stem (k3 s1 + k3 s2, exact GELU) + positional prefix: a
+        window shorter than 30 s (the 8/16 s buckets) takes the first T/2
+        rows of the positional table. Convolutions in IEEE f32 when f32."""
+        with _no_tf32_conv():
+            x = F.gelu(self.conv1(mel.transpose(1, 2)))
+            x = F.gelu(self.conv2(x)).transpose(1, 2)
+        return x + self.pos_emb[: x.shape[1]].to(x.dtype)
+
+
+class TextDecoder(nn.Module):
+    def __init__(self, cfg: WhisperConfig, **factory):
+        super().__init__()
+        d = cfg.n_text_state
+        self.tok_emb = nn.Parameter(torch.empty(cfg.n_vocab, d, **factory))
+        self.pos_emb = nn.Parameter(torch.empty(cfg.n_text_ctx, d, **factory))
+        self.blocks = nn.ModuleList(
+            Block(d, cfg.n_text_head, cross=True, **factory) for _ in range(cfg.n_text_layer))
+        self.ln = LayerNorm(d, **factory)
+
+
+@dataclasses.dataclass
+class DecoderCache:
+    """self_k/self_v: (L, B, H, text_ctx, Dh), written in place at the decode
+    position; cross_k/cross_v: (L, B, H, audio_ctx, Dh), computed once per
+    encoded window."""
+
+    self_k: torch.Tensor
+    self_v: torch.Tensor
+    cross_k: torch.Tensor
+    cross_v: torch.Tensor
+
+
+class Whisper(nn.Module):
+    def __init__(self, cfg: WhisperConfig, dtype=torch.float32, device=None):
+        super().__init__()
+        self.cfg = cfg
+        factory = {"dtype": dtype, "device": device}
+        self.encoder = AudioEncoder(cfg, **factory)
+        self.decoder = TextDecoder(cfg, **factory)
+
+    @classmethod
+    def empty(cls, cfg: WhisperConfig, dtype, device) -> "Whisper":
+        """Uninitialised model on ``device`` (no default init is run)."""
+        return cls(cfg, dtype, device="meta").to_empty(device=device).requires_grad_(False)
+
+    @property
+    def dtype(self) -> torch.dtype:
+        return self.decoder.tok_emb.dtype
+
+    # ------------------------------------------------------------- encoder
+
+    def encode(self, mel: torch.Tensor) -> torch.Tensor:
+        """mel (B, T, n_mels) -> (B, T//2, d), T ≤ 2*n_audio_ctx."""
+        x = self.encoder.stem(mel)
+        for blk in self.encoder.blocks:
+            x = blk.mlp_block(blk.mha_block(x))
+        return self.encoder.ln_post(x)
+
+    # ------------------------------------------------------------- decoder
+
+    def precompute_cross_kv(self, xa: torch.Tensor):
+        """xa (B, audio_ctx, d) -> cross K/V, each (L, B, H, audio_ctx, Dh).
+        K/V come from the raw encoder output (cross_ln only normalizes the
+        query)."""
+        h = self.cfg.n_text_head
+        ks, vs = [], []
+        for blk in self.decoder.blocks:
+            ks.append(_split_heads(blk.cross.key(xa), h))
+            vs.append(_split_heads(blk.cross.value(xa), h))
+        return torch.stack(ks), torch.stack(vs)
+
+    def init_cache(self, xa: torch.Tensor, text_ctx: Optional[int] = None) -> DecoderCache:
+        """``text_ctx`` trims the self-attention cache below n_text_ctx when
+        the caller knows its decode budget."""
+        cfg = self.cfg
+        tc = text_ctx or cfg.n_text_ctx
+        ck, cv = self.precompute_cross_kv(xa)
+        shape = (cfg.n_text_layer, xa.shape[0], cfg.n_text_head, tc,
+                 cfg.n_text_state // cfg.n_text_head)
+        return DecoderCache(
+            self_k=torch.zeros(shape, dtype=xa.dtype, device=xa.device),
+            self_v=torch.zeros(shape, dtype=xa.dtype, device=xa.device),
+            cross_k=ck, cross_v=cv,
+        )
+
+    def logits(self, x: torch.Tensor) -> torch.Tensor:
+        """Tied output head, f32 logits (x @ tok_emb.T with f32 products and
+        sums, as the JAX package's preferred_element_type=f32)."""
+        return torch.matmul(x.float(), self.decoder.tok_emb.float().t())
+
+    def _decoder_layers(self, x, pos0: int, mask, cache: DecoderCache,
+                        alignment_mask: Optional[torch.Tensor]):
+        """Run the decoder blocks over x (B, S, d) at positions pos0..pos0+S-1,
+        writing their K/V into the self cache in place. Returns (hidden,
+        xattn (B, S, audio_ctx) or None)."""
+        s = x.shape[1]
+        capture = alignment_mask is not None
+        xattn = None
+        for layer, blk in enumerate(self.decoder.blocks):
+            q, k, v = blk.attn.project(blk.attn_ln(x))  # each (B,H,S,Dh)
+            cache.self_k[layer, :, :, pos0 : pos0 + s] = k
+            cache.self_v[layer, :, :, pos0 : pos0 + s] = v
+            o, _ = _attend(q, cache.self_k[layer], cache.self_v[layer], mask)
+            x = x + blk.attn.out(_merge_heads(o))
+            q = _split_heads(blk.cross.query(blk.cross_ln(x)), blk.cross.n_head)
+            o, w = _attend(q, cache.cross_k[layer], cache.cross_v[layer], None,
+                           return_weights=capture)
+            x = x + blk.cross.out(_merge_heads(o))
+            x = blk.mlp_block(x)
+            if capture:  # alignment-head-weighted average of (B,H,S,T) weights
+                xl = torch.einsum("bhst,h->bst", w, alignment_mask[layer])
+                xattn = xl if xattn is None else xattn + xl
+        return self.decoder.ln(x), xattn
+
+    def decode_span(self, tokens: torch.Tensor, pos0: int, cache: DecoderCache,
+                    alignment_mask: Optional[torch.Tensor] = None):
+        """Process S tokens at once (prompt/prefix/draft prefill), writing the
+        KV cache. tokens (B, S) at positions pos0.. -> (logits (B, S, V) f32,
+        xattn (B, S, audio_ctx) f32 or None). ``alignment_mask`` (L, H)."""
+        dec = self.decoder
+        s = tokens.shape[1]
+        pos = pos0 + torch.arange(s, device=tokens.device)
+        x = (dec.tok_emb[tokens] + dec.pos_emb[pos]).to(cache.self_k.dtype)
+        # query q may attend to cache key j iff j <= pos0 + q
+        j = torch.arange(cache.self_k.shape[3], device=tokens.device)
+        mask = torch.where(j[None, :] > pos[:, None], _NEG, 0.0)[None, None]
+        x, xattn = self._decoder_layers(x, pos0, mask, cache, alignment_mask)
+        return self.logits(x), xattn
+
+    def decode_step(self, tokens: torch.Tensor, pos: int, cache: DecoderCache,
+                    alignment_mask: Optional[torch.Tensor] = None):
+        """One incremental step: tokens (B,) at position ``pos`` -> (logits
+        (B, V) f32, xattn (B, audio_ctx) f32 or None)."""
+        dec = self.decoder
+        x = (dec.tok_emb[tokens] + dec.pos_emb[pos])[:, None, :].to(cache.self_k.dtype)
+        j = torch.arange(cache.self_k.shape[3], device=tokens.device)
+        mask = torch.where(j > pos, _NEG, 0.0)
+        x, xattn = self._decoder_layers(x, pos, mask, cache, alignment_mask)
+        return self.logits(x[:, 0]), (None if xattn is None else xattn[:, 0])
+
+
+def init_params(cfg: WhisperConfig, generator: torch.Generator,
+                dtype=torch.float32, device="cuda") -> Whisper:
+    """Random-init model, drawn from ``generator`` (which must live on
+    ``device``) with the JAX package's distributions: linear and conv weights
+    N(0, 1/fan_in), zero biases, unit layer-norm gains, token embedding
+    N(0, 0.02²), sinusoidal encoder positions, zero decoder positions. The
+    self-attention q/k/v weights are drawn fused (``qkv``), k's bias zero."""
+    device = resolve_device(device)
+    model = Whisper.empty(cfg, dtype, device)
+
+    def normal_(p: torch.Tensor, std: float) -> None:
+        p.copy_(torch.randn(p.shape, generator=generator, device=device) * std)
+
+    with torch.no_grad():
+        for mod in model.modules():
+            if isinstance(mod, nn.Linear):
+                normal_(mod.weight, mod.in_features ** -0.5)
+            elif isinstance(mod, nn.Conv1d):
+                normal_(mod.weight, (mod.in_channels * mod.kernel_size[0]) ** -0.5)
+            elif isinstance(mod, nn.LayerNorm):
+                mod.weight.fill_(1.0)
+            if getattr(mod, "bias", None) is not None:
+                mod.bias.zero_()
+        normal_(model.decoder.tok_emb, 0.02)
+        model.decoder.pos_emb.zero_()
+        model.encoder.pos_emb.copy_(
+            torch.from_numpy(_sinusoids(cfg.n_audio_ctx, cfg.n_audio_state)))
+    return model
