@@ -26,6 +26,7 @@ import torch
 
 from realtime_whisper_asr_tpu_torch.device import resolve_device
 from realtime_whisper_asr_tpu_torch.models.whisper import decode as D
+from realtime_whisper_asr_tpu_torch.models.whisper import quant as Q
 from realtime_whisper_asr_tpu_torch.models.whisper import timestamps as TS
 from realtime_whisper_asr_tpu_torch.models.whisper.config import WhisperConfig, get_config
 from realtime_whisper_asr_tpu_torch.models.whisper.model import Whisper, init_params
@@ -102,21 +103,34 @@ class TorchWhisperASR:
         seed: int = 0,
         word_timestamps: bool = True,
         device="cuda",
+        quantization: Optional[str] = None,
     ):
         """``params``: a state dict of ``models.whisper.model.Whisper``
         (``convert.params_from_jax`` / ``convert.load_flat_npz``); random
         init from ``seed`` when None. Runs on the card unless ``device``
-        says otherwise, and raises when CUDA is absent."""
+        says otherwise, and raises when CUDA is absent.
+
+        ``quantization``, as the JAX backend's: None, ``"int8"`` (decoder
+        block linears), ``"int8-all"`` (+ encoder blocks + tied head),
+        ``"int4"`` (int4-g128 decoder blocks + int8 head) or ``"int4-all"``
+        (+ int8 encoder blocks). The tier quantizes the weights before the
+        model is built. ``"int8-kv"`` raises ``NotImplementedError`` (not
+        ported yet), an unknown value ``ValueError``."""
+        Q.tier_layout(quantization)  # raises on a tier not ported or unknown
+        self.quantization = quantization if quantization not in ("", "none") else None
         self.device = resolve_device(device)
         self.cfg = cfg or get_config(model_size)
-        if params is not None:
-            self.model = Whisper.empty(self.cfg, dtype, self.device)
-            self.model.load_state_dict(params)
-        else:
+        if params is None:
             logger.warning("no weights provided; initializing %s with random weights",
                            self.cfg.name)
             gen = torch.Generator(device=self.device).manual_seed(seed)
             self.model = init_params(self.cfg, gen, dtype, self.device)
+            if self.quantization:
+                params = self.model.state_dict()
+        if params is not None:
+            state = Q.quantize(params, self.quantization)
+            self.model = Whisper.empty(self.cfg, dtype, self.device, self.quantization)
+            self.model.load_state_dict(state)
         self.tokenizer = tokenizer or get_tokenizer(self.cfg)
         #: (L, H) f32 weights for DTW cross-attention capture; None selects
         #: the top-half-layers default (decode._amask_dev)

@@ -8,6 +8,13 @@ dict of ``model.Whisper``: one entry per block, torch's (out, in) and
 (out, in, k) layouts, and the self-attention projections fused the way the
 JAX package's ``quant.fuse_qkv`` fuses them (key bias zero), which its ASR
 backend always applies.
+
+Quantized leaves (``{"q", "s"}`` dicts from the JAX package's ``quant``
+tiers) carry across unchanged in value: an int8 linear becomes ``name.q``
+(out, in) — the JAX ``q`` transposed — and ``name.s``; a packed int4 linear
+(grouped scales, ``s.ndim == q.ndim``) keeps the JAX layout, ``name.q``
+(in/2, out) and ``name.s`` (G, out), which the port's int4 kernel reads; the
+int8 tied embedding becomes ``decoder.tok_emb.q`` / ``.s``.
 """
 
 from __future__ import annotations
@@ -20,14 +27,20 @@ def _t(a: np.ndarray) -> torch.Tensor:
     return torch.from_numpy(np.array(a, order="C"))  # a writable contiguous copy
 
 
-def _dense(w) -> np.ndarray:
+def _index(w, i: int):
+    """Layer ``i`` of a stacked leaf, dense or a quantized dict."""
     if isinstance(w, dict):
-        raise ValueError("quantized weights are not supported by the port yet")
-    return np.asarray(w)
+        return {k: np.asarray(v)[i] for k, v in w.items()}
+    return np.asarray(w)[i]
 
 
 def _linear(state: dict, name: str, w, b) -> None:
-    state[f"{name}.weight"] = _t(_dense(w).T)
+    if isinstance(w, dict):
+        q, s = np.asarray(w["q"]), np.asarray(w["s"])
+        state[f"{name}.q"] = _t(q if s.ndim == q.ndim else q.T)
+        state[f"{name}.s"] = _t(s)
+    else:
+        state[f"{name}.weight"] = _t(np.asarray(w).T)
     if b is not None:
         state[f"{name}.bias"] = _t(b)
 
@@ -37,17 +50,25 @@ def _norm(state: dict, name: str, node: dict) -> None:
     state[f"{name}.bias"] = _t(node["b"])
 
 
-def _fused_qkv(attn: dict) -> tuple[np.ndarray, np.ndarray]:
+def _concat_out(ws: list):
+    """Concatenate weights along the output axis, as ``quant.fuse_qkv``:
+    quantized q and s both along their last axis."""
+    if isinstance(ws[0], dict):
+        return {k: np.concatenate([np.asarray(w[k]) for w in ws], axis=-1) for k in ("q", "s")}
+    return np.concatenate([np.asarray(w) for w in ws], axis=-1)
+
+
+def _fused_qkv(attn: dict):
     if "wqkv" in attn:
-        return _dense(attn["wqkv"]), np.asarray(attn["bqkv"])
-    w = np.concatenate([_dense(attn[k]) for k in ("wq", "wk", "wv")], axis=-1)
+        return attn["wqkv"], np.asarray(attn["bqkv"])
+    w = _concat_out([attn[k] for k in ("wq", "wk", "wv")])
     bq = np.asarray(attn["bq"])
     return w, np.concatenate([bq, np.zeros_like(bq), np.asarray(attn["bv"])], axis=-1)
 
 
 def _layer(node: dict, i: int) -> dict:
     """Layer ``i`` of a layer-stacked subtree."""
-    return {k: np.asarray(_dense(v))[i] for k, v in node.items()}
+    return {k: _index(v, i) for k, v in node.items()}
 
 
 def _blocks(state: dict, prefix: str, stacked: dict, cross: bool) -> None:
@@ -57,7 +78,7 @@ def _blocks(state: dict, prefix: str, stacked: dict, cross: bool) -> None:
         p = f"{prefix}.{i}"
         attn, mlp = _layer(stacked["attn"], i), _layer(stacked["mlp"], i)
         _norm(state, f"{p}.attn_ln", _layer(stacked["attn_ln"], i))
-        _linear(state, f"{p}.attn.qkv", wqkv[i], bqkv[i])
+        _linear(state, f"{p}.attn.qkv", _index(wqkv, i), bqkv[i])
         _linear(state, f"{p}.attn.out", attn["wo"], attn["bo"])
         _norm(state, f"{p}.mlp_ln", _layer(stacked["mlp_ln"], i))
         _linear(state, f"{p}.fc1", mlp["w1"], mlp["b1"])
@@ -83,7 +104,11 @@ def params_from_jax(tree: dict) -> dict[str, torch.Tensor]:
     state["encoder.pos_emb"] = _t(enc["pos_emb"])
     _blocks(state, "encoder.blocks", enc["blocks"], cross=False)
     _norm(state, "encoder.ln_post", enc["ln_post"])
-    state["decoder.tok_emb"] = _t(dec["tok_emb"])
+    if isinstance(dec["tok_emb"], dict):
+        state["decoder.tok_emb.q"] = _t(dec["tok_emb"]["q"])
+        state["decoder.tok_emb.s"] = _t(dec["tok_emb"]["s"])
+    else:
+        state["decoder.tok_emb"] = _t(dec["tok_emb"])
     state["decoder.pos_emb"] = _t(dec["pos_emb"])
     _blocks(state, "decoder.blocks", dec["blocks"], cross=True)
     _norm(state, "decoder.ln", dec["ln"])

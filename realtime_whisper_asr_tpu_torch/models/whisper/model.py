@@ -13,7 +13,11 @@ numerics, in PyTorch idiom:
 - the decoder's self-attention K/V cache is written in place at the decode
   position (JAX writes a new cache array per step);
 - cross-attention weights are captured through the alignment mask for DTW
-  word timestamps (timestamps.py).
+  word timestamps (timestamps.py);
+- the int8 / int4 tiers (``quant.py``) swap block linears for
+  ``Int8Linear`` / ``Int4Linear`` and the tied embedding for
+  ``Int8Embedding``, computing the JAX package's quantized ``_linear``,
+  ``_emb_rows`` and ``_logits_head``.
 
 The public functions keep the JAX package's layouts: mel (B, T, n_mels),
 encoder output (B, T/2, d), caches (L, B, H, T, Dh), logits f32.
@@ -33,6 +37,9 @@ from torch import nn
 
 from realtime_whisper_asr_tpu_torch.device import resolve_device
 from realtime_whisper_asr_tpu_torch.models.whisper.config import WhisperConfig
+from realtime_whisper_asr_tpu_torch.models.whisper.quant import int4_groups, tier_layout
+from realtime_whisper_asr_tpu_torch.ops.int4_matmul import int4_matmul
+from realtime_whisper_asr_tpu_torch.ops.int8_matmul import int8_matmul, quantize_rows
 
 _NEG = -1e9  # additive mask value (as the JAX package)
 
@@ -57,6 +64,98 @@ def _no_tf32_conv():
         yield
     finally:
         torch.backends.cudnn.allow_tf32 = prev
+
+
+class _QuantLinear(nn.Module):
+    """Weight-only quantized linear: buffers ``q`` (int8) and ``s`` (f32
+    scales), a bias in the compute dtype. The activations are quantized per
+    row on each call (``quantize_rows``), as the JAX package's ``_linear``."""
+
+    def __init__(self, d_in: int, d_out: int, q_shape, s_shape, bias: bool = True,
+                 dtype=None, device=None):
+        super().__init__()
+        self.in_features, self.out_features = d_in, d_out
+        self.register_buffer("q", torch.empty(q_shape, dtype=torch.int8, device=device))
+        self.register_buffer("s", torch.empty(s_shape, dtype=torch.float32, device=device))
+        if bias:
+            self.bias = nn.Parameter(torch.empty(d_out, dtype=dtype, device=device))
+        else:
+            self.register_parameter("bias", None)
+
+    def _product(self, xq: torch.Tensor, sx: torch.Tensor, dtype) -> torch.Tensor:
+        raise NotImplementedError
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        xq, sx = quantize_rows(x)
+        lead = x.shape[:-1]
+        y = self._product(xq.reshape(-1, self.in_features), sx.reshape(-1, 1), x.dtype)
+        y = y.reshape(*lead, self.out_features)
+        return y if self.bias is None else y + self.bias.to(x.dtype)
+
+
+class Int8Linear(_QuantLinear):
+    """int8 weights q (out, in) with per-output scales s (out,): an exact
+    int32 product, then ``y * sx * s`` in that order, cast to x's dtype."""
+
+    def __init__(self, d_in: int, d_out: int, bias: bool = True, dtype=None, device=None):
+        super().__init__(d_in, d_out, (d_out, d_in), (d_out,), bias, dtype, device)
+
+    def _product(self, xq, sx, dtype):
+        return (int8_matmul(xq, self.q).float() * sx * self.s).to(dtype)
+
+
+class Int4Linear(_QuantLinear):
+    """Nibble-packed int4 weights q (in/2, out) with per-group scales s
+    (G, out): the packed-int4 kernel (K2) on the card, its plain version on
+    the CPU, then ``y * sx``, cast to x's dtype."""
+
+    def __init__(self, d_in: int, d_out: int, bias: bool = True, dtype=None, device=None):
+        super().__init__(d_in, d_out, (d_in // 2, d_out), (int4_groups(d_in), d_out), bias,
+                         dtype, device)
+
+    def _product(self, xq, sx, dtype):
+        return (int4_matmul(xq, self.q, self.s) * sx).to(dtype)
+
+
+class Int8Embedding(nn.Module):
+    """Tied token embedding as int8 rows q with per-row scales s (V,), for
+    the embedding gather and the logits head. ``q`` holds V rows padded with
+    zeros to a multiple of 8 (the card's int8 product takes N % 8 == 0);
+    the state dict may carry the V rows alone, which load pads."""
+
+    def __init__(self, n_vocab: int, d: int, device=None):
+        super().__init__()
+        self.n_vocab = n_vocab
+        self.register_buffer("q", torch.empty(-(-n_vocab // 8) * 8, d, dtype=torch.int8,
+                                              device=device))
+        self.register_buffer("s", torch.empty(n_vocab, dtype=torch.float32, device=device))
+
+    def _load_from_state_dict(self, state_dict, prefix, *args, **kwargs):
+        q = state_dict.get(prefix + "q")
+        if q is not None and q.shape[0] == self.n_vocab < self.q.shape[0]:
+            state_dict[prefix + "q"] = F.pad(q, (0, 0, 0, self.q.shape[0] - self.n_vocab))
+        super()._load_from_state_dict(state_dict, prefix, *args, **kwargs)
+
+    def rows(self, tokens: torch.Tensor) -> torch.Tensor:
+        """f32 embedding rows of ``tokens``."""
+        return self.q[tokens].float() * self.s[tokens][..., None]
+
+    def logits(self, x: torch.Tensor) -> torch.Tensor:
+        """x @ dequant(q).T, f32: ``y * sx * s`` over an exact int32 product."""
+        xq, sx = quantize_rows(x)
+        lead = x.shape[:-1]
+        y = int8_matmul(xq.reshape(-1, xq.shape[-1]), self.q)[:, : self.n_vocab]
+        return y.reshape(*lead, self.n_vocab).float() * sx * self.s
+
+
+def _quantize_linears(blocks: nn.ModuleList, kind: str, **factory) -> None:
+    """Swap every ``nn.Linear`` of ``blocks`` for its ``kind`` counterpart."""
+    cls = Int8Linear if kind == "int8" else Int4Linear
+    for parent in list(blocks.modules()):
+        for name, child in list(parent.named_children()):
+            if isinstance(child, nn.Linear):
+                setattr(parent, name, cls(child.in_features, child.out_features,
+                                          bias=child.bias is not None, **factory))
 
 
 def _split_heads(x: torch.Tensor, n_head: int) -> torch.Tensor:
@@ -184,21 +283,40 @@ class DecoderCache:
 
 
 class Whisper(nn.Module):
-    def __init__(self, cfg: WhisperConfig, dtype=torch.float32, device=None):
+    def __init__(self, cfg: WhisperConfig, dtype=torch.float32, device=None,
+                 quantization: Optional[str] = None):
+        """``quantization``: a tier of ``quant.TIERS``; its block linears and
+        tied head take the quantized modules, whose buffers the tier's state
+        dict (``quant.quantize``) fills."""
         super().__init__()
         self.cfg = cfg
+        self.quantization = quantization
+        enc_kind, dec_kind, head_int8 = tier_layout(quantization)
         factory = {"dtype": dtype, "device": device}
         self.encoder = AudioEncoder(cfg, **factory)
         self.decoder = TextDecoder(cfg, **factory)
+        if enc_kind:
+            _quantize_linears(self.encoder.blocks, enc_kind, **factory)
+        if dec_kind:
+            _quantize_linears(self.decoder.blocks, dec_kind, **factory)
+        if head_int8:
+            del self.decoder.tok_emb
+            self.decoder.tok_emb = Int8Embedding(cfg.n_vocab, cfg.n_text_state, device=device)
 
     @classmethod
-    def empty(cls, cfg: WhisperConfig, dtype, device) -> "Whisper":
+    def empty(cls, cfg: WhisperConfig, dtype, device,
+              quantization: Optional[str] = None) -> "Whisper":
         """Uninitialised model on ``device`` (no default init is run)."""
-        return cls(cfg, dtype, device="meta").to_empty(device=device).requires_grad_(False)
+        return cls(cfg, dtype, device="meta", quantization=quantization).to_empty(
+            device=device).requires_grad_(False)
 
     @property
     def dtype(self) -> torch.dtype:
-        return self.decoder.tok_emb.dtype
+        return self.decoder.pos_emb.dtype
+
+    def _emb_rows(self, tokens: torch.Tensor) -> torch.Tensor:
+        emb = self.decoder.tok_emb
+        return emb.rows(tokens) if isinstance(emb, Int8Embedding) else emb[tokens]
 
     # ------------------------------------------------------------- encoder
 
@@ -238,8 +356,12 @@ class Whisper(nn.Module):
 
     def logits(self, x: torch.Tensor) -> torch.Tensor:
         """Tied output head, f32 logits (x @ tok_emb.T with f32 products and
-        sums, as the JAX package's preferred_element_type=f32)."""
-        return torch.matmul(x.float(), self.decoder.tok_emb.float().t())
+        sums, as the JAX package's preferred_element_type=f32); the int8 head
+        of the quantized tiers through ``Int8Embedding.logits``."""
+        emb = self.decoder.tok_emb
+        if isinstance(emb, Int8Embedding):
+            return emb.logits(x)
+        return torch.matmul(x.float(), emb.float().t())
 
     def _decoder_layers(self, x, pos0: int, mask, cache: DecoderCache,
                         alignment_mask: Optional[torch.Tensor]):
@@ -273,7 +395,7 @@ class Whisper(nn.Module):
         dec = self.decoder
         s = tokens.shape[1]
         pos = pos0 + torch.arange(s, device=tokens.device)
-        x = (dec.tok_emb[tokens] + dec.pos_emb[pos]).to(cache.self_k.dtype)
+        x = (self._emb_rows(tokens) + dec.pos_emb[pos]).to(cache.self_k.dtype)
         # query q may attend to cache key j iff j <= pos0 + q
         j = torch.arange(cache.self_k.shape[3], device=tokens.device)
         mask = torch.where(j[None, :] > pos[:, None], _NEG, 0.0)[None, None]
@@ -285,7 +407,7 @@ class Whisper(nn.Module):
         """One incremental step: tokens (B,) at position ``pos`` -> (logits
         (B, V) f32, xattn (B, audio_ctx) f32 or None)."""
         dec = self.decoder
-        x = (dec.tok_emb[tokens] + dec.pos_emb[pos])[:, None, :].to(cache.self_k.dtype)
+        x = (self._emb_rows(tokens) + dec.pos_emb[pos])[:, None, :].to(cache.self_k.dtype)
         j = torch.arange(cache.self_k.shape[3], device=tokens.device)
         mask = torch.where(j > pos, _NEG, 0.0)
         x, xattn = self._decoder_layers(x, pos, mask, cache, alignment_mask)

@@ -1,0 +1,2 @@
+"""Measurement tools of the port that run on the card (importing them runs
+nothing)."""

@@ -4,8 +4,9 @@
   ``chip_smoke.py``) pulls in neither ``jax`` nor the JAX package. The name
   check is exact: the port's own name starts with the JAX package's.
 - Entry points default to CUDA and raise on a host without it.
-- The log-mel wrapper has no ``try``/``except`` that could fall back from the
-  kernel to the plain version.
+- The kernel wrappers (log-mel, packed-int4 matmul, matmul chain), the int8
+  product and the quantized modules' dispatch have no ``try``/``except`` that
+  could fall back from a kernel to its plain version.
 """
 
 import ast
@@ -19,7 +20,7 @@ import torch
 from realtime_whisper_asr_tpu_torch import asr as asr_mod
 from realtime_whisper_asr_tpu_torch.models.whisper import model as model_mod
 from realtime_whisper_asr_tpu_torch.models.whisper.config import get_config
-from realtime_whisper_asr_tpu_torch.ops import logmel
+from realtime_whisper_asr_tpu_torch.ops import int4_matmul, int8_matmul, logmel, matmul_chain
 
 torch.set_num_threads(2)
 
@@ -60,6 +61,23 @@ def test_logmel_wrapper_has_no_fallback():
     with open(logmel.__file__) as f:
         tree = ast.parse(f.read())
     assert not [n for n in ast.walk(tree) if isinstance(n, ast.Try)]
+
+
+@pytest.mark.parametrize("mod", [int4_matmul, matmul_chain, int8_matmul],
+                         ids=lambda m: m.__name__.rsplit(".", 1)[-1])
+def test_kernel_wrappers_have_no_fallback(mod):
+    with open(mod.__file__) as f:
+        tree = ast.parse(f.read())
+    assert not [n for n in ast.walk(tree) if isinstance(n, ast.Try)]
+
+
+def test_quantized_linear_dispatch_has_no_fallback():
+    with open(model_mod.__file__) as f:
+        tree = ast.parse(f.read())
+    names = {"_QuantLinear", "Int8Linear", "Int4Linear", "Int8Embedding", "_quantize_linears"}
+    nodes = [n for n in tree.body if getattr(n, "name", None) in names]
+    assert len(nodes) == len(names)
+    assert not [n for node in nodes for n in ast.walk(node) if isinstance(n, ast.Try)]
 
 
 def test_logmel_refuses_other_devices():
