@@ -14,13 +14,20 @@ Phases, each failing the run with a non-zero exit:
   5. the main path at full width: large-v3 in bf16 with seeded random weights,
      one offline 16 s transcribe and an 8 s stream at 1 s chunks through
      OnlineASRProcessor, with every kernel launch counted;
-  6. the packed-int4 kernel (K2) against its plain version at the large-v3
-     decode shapes (M = 1), the 16 s cross-K/V shape (M = 800) and the
-     test-tiny shapes, with times;
+  6. the packed-int4 kernel family (K2) against its plain versions, bit for
+     bit, at the large-v3 decode shapes (M = 1), its prefill spans (M = 2,
+     4, 8 and 24), the 16 s cross-K/V shape (M = 800) and the test-tiny
+     shapes, with times: ``int4_matmul`` (int8 in, f32 out) and
+     ``int4_linear`` (x in bf16 and f32, with and without bias); then a
+     profiler count of the kernels one large-v3 ``Int4Linear``
+     forward launches at M = 1 and M = 800 (at most 2);
   7. golden parity of the quantized tiers at f32: ``int8-all`` and ``int4``
      on the golden weights reproduce the recorded matrix rows;
   8. the int4 tier at full width: phase 5's run with large-v3 quantized at
-     load, K2's launches equal to the count the model's structure predicts;
+     load, K2's launches equal to the count the model's structure predicts
+     (per layer, 2 cross-K/V linears per encoded window and 6 linears per
+     decoder pass, each 1 launch at M <= 8 and 2 above), and every K2 code
+     path it took among those phase 6 held against the plain version;
   9. the fused matmul chain (K3) against its plain version at T = 800,
      D = 1280, k in {1, 8, 32}, one launch per chain, with times; then the
      port's encoder microbenchmark section (bf16 and int8-all encoder).
@@ -311,13 +318,18 @@ def phase_full_width(guard: FailOnLog, quantization: str | None = None) -> dict:
         return results[-1]
 
     asr.transcribe = recording_transcribe
-    passes = [0]  # decoder passes: prefill spans and greedy steps
-    for name in ("decode_span", "decode_step"):
+    # rows of every K2 call site: per encoded window the cross-K/V linears
+    # (B x audio_ctx rows), per decoder pass (prefill span or greedy step)
+    # the six block linears (B x tokens rows)
+    rows = {"windows": [], "passes": []}
+    for name, key in (("precompute_cross_kv", "windows"), ("decode_span", "passes"),
+                      ("decode_step", "passes")):
         inner = getattr(asr.model, name)
 
-        def counted(*args, _inner=inner, **kwargs):
-            passes[0] += 1
-            return _inner(*args, **kwargs)
+        def counted(first, *args, _inner=inner, _key=key, **kwargs):
+            rows[_key].append(first.shape[0] * first.shape[1] if _key == "windows"
+                              else first.numel())
+            return _inner(first, *args, **kwargs)
 
         setattr(asr.model, name, counted)
     offline_audio = np.concatenate([golden_audio(i) for i in range(2)])  # 16 s
@@ -327,7 +339,8 @@ def phase_full_width(guard: FailOnLog, quantization: str | None = None) -> dict:
     # ---- the main path, with the launch counts read around it
     logmel.logmel_launches = 0
     int4_matmul.int4_launches = 0
-    passes[0] = 0
+    rows["windows"].clear()
+    rows["passes"].clear()
     t0 = time.perf_counter()
     asr.transcribe(offline_audio)
     torch.cuda.synchronize()
@@ -335,7 +348,7 @@ def phase_full_width(guard: FailOnLog, quantization: str | None = None) -> dict:
     tick_ms: list[float] = []
     run_stream(asr, stream_audio, guard, tick_ms)
     launches = {"logmel": logmel.logmel_launches, "int4": int4_matmul.int4_launches,
-                "passes": passes[0]}
+                "passes": len(rows["passes"])}
     # ----
 
     ticks = 1 + len(stream_audio) // SR
@@ -347,13 +360,36 @@ def phase_full_width(guard: FailOnLog, quantization: str | None = None) -> dict:
                              f"encoded windows")
     # K2 serves every int4 product: per encoded window the cross key and
     # value of each decoder layer, per decoder pass each layer's fused qkv,
-    # self out, cross query, cross out, fc1 and fc2 (the head is int8)
+    # self out, cross query, cross out, fc1 and fc2 (the head is int8); an
+    # int4_linear is one launch at M <= DECODE_MAX_M rows and two above
+    if len(rows["windows"]) != ticks:
+        raise AssertionError(f"{len(rows['windows'])} encoded windows, expected {ticks}")
     int4 = quantization in ("int4", "int4-all")
-    predicted = asr.cfg.n_text_layer * (2 * ticks + 6 * passes[0]) if int4 else 0
+
+    def per_linear(m: int) -> int:
+        return 1 if m <= int4_matmul.DECODE_MAX_M else 2
+
+    win = sum(per_linear(m) for m in rows["windows"])
+    dec = sum(per_linear(m) for m in rows["passes"])
+    predicted = asr.cfg.n_text_layer * (2 * win + 6 * dec) if int4 else 0
+    small = sum(m <= int4_matmul.DECODE_MAX_M for m in rows["passes"])
+    formula = (f"{asr.cfg.n_text_layer} layers x (2 x {ticks} windows x 2 launches + 6 x "
+               f"({small} passes of <= {int4_matmul.DECODE_MAX_M} rows x 1 + "
+               f"{len(rows['passes']) - small} passes x 2))")
+    if win != 2 * ticks:
+        raise AssertionError(f"an encoded window of <= {int4_matmul.DECODE_MAX_M} rows: "
+                             f"{rows['windows']}")
     if launches["int4"] != predicted:
         raise AssertionError(f"K2 launched {launches['int4']} times, predicted {predicted} "
-                             f"({asr.cfg.n_text_layer} layers, {ticks} windows, "
-                             f"{passes[0]} decoder passes)")
+                             f"({formula})")
+    if int4:  # every K2 path this run took is held against its plain version
+        used = {k2_path(m) for m in rows["windows"] + rows["passes"]}
+        held = {k2_path(m) for _, m, k, _ in INT4_SHAPES if k >= asr.cfg.n_text_state}
+        if used - held:
+            raise AssertionError(f"K2 paths {sorted(used - held)} ran at large-v3 widths but no "
+                                 f"row of INT4_SHAPES holds them against the plain version")
+        print(f"{label}: K2 paths taken {sorted(used)} (rows of the decoder passes: "
+              f"{sorted(set(rows['passes']))}), each held bit for bit in the K2 phases")
     for res in results:
         if not res.tokens or not all(0 <= t < asr.cfg.n_vocab for t in res.tokens):
             raise AssertionError(f"tokens out of range or empty: {res.tokens}")
@@ -406,8 +442,8 @@ def phase_full_width(guard: FailOnLog, quantization: str | None = None) -> dict:
     print(f"{label}: offline 16 s transcribe {offline_s:.2f} s (first call), "
           f"{len(results[0].tokens)} tokens; stream of {ticks - 1} ticks, p50 tick "
           f"{np.median(tick_ms):.1f} ms; logmel launches {launches['logmel']} = encoded "
-          f"windows; K2 launches {launches['int4']} (predicted {predicted}: "
-          f"{asr.cfg.n_text_layer} layers x (2 x {ticks} windows + 6 x {passes[0]} passes))")
+          f"windows; K2 launches {launches['int4']} (predicted {predicted}"
+          + (f" = {formula})" if int4 else ")"))
     share = {k: f"{v / wall:.0%}" if k in busy else "not measured"
              for k, v, wall in (("encode", busy.get("encode", 0), encode_ms),
                                 ("decode", busy.get("decode", 0), 1e3 * decode_s))}
@@ -429,13 +465,25 @@ def _bound(nbytes: float, ops: float, peak_ops: float) -> tuple[float, str]:
 
 
 #: K2 shapes (name, M, K, N): large-v3's decode step (M = 1: fused qkv, self
-#: and cross wo, fc1, fc2), the cross-K/V projection at the 16 s bucket, and
-#: test-tiny's (one scale group at K = 64; the fused-qkv N = 192; two groups)
+#: and cross wo, fc1, fc2); its prefill spans, short (the start-of-transcript
+#: prompt, M = 2 to 8: each of the decode kernel's row counts) and long
+#: (M = 24, above 8 rows: the tensor-core product, fc2 over all 40 groups);
+#: the cross-K/V projection at the 16 s bucket; and test-tiny's (one scale
+#: group at K = 64; the fused-qkv N = 192; two groups). Every path the
+#: large-v3 int4 run takes is among them (phase_full_width checks it).
 INT4_SHAPES = (
     ("decode qkv", 1, 1280, 3840),
     ("decode wo", 1, 1280, 1280),
     ("decode fc1", 1, 1280, 5120),
     ("decode fc2", 1, 5120, 1280),
+    ("span wo M=2", 2, 1280, 1280),
+    ("sot qkv M=4", 4, 1280, 3840),
+    ("sot fc1 M=4", 4, 1280, 5120),
+    ("sot fc2 M=4", 4, 5120, 1280),
+    ("span fc2 M=8", 8, 5120, 1280),
+    ("prefill qkv M=24", 24, 1280, 3840),
+    ("prefill fc1 M=24", 24, 1280, 5120),
+    ("prefill fc2 M=24", 24, 5120, 1280),
     ("cross-K/V 16 s", 800, 1280, 1280),
     ("test-tiny qkv G=1", 1, 64, 192),
     ("test-tiny prefill G=1", 17, 64, 192),
@@ -443,48 +491,170 @@ INT4_SHAPES = (
 )
 
 
-def phase_int4() -> dict:
-    """K2 against its plain version (both exact: |Δ| <= 1e-6 max|plain|
-    allows only the f32 sum over groups in another order, which the two do
-    not take), with times at every shape."""
+def k2_path(m: int) -> str:
+    """The K2 code path a product of m rows takes: the decode kernel at its
+    row count (1, 2, 4 or 8), or the tensor-core product above 8 rows."""
+    from realtime_whisper_asr_tpu_torch.ops.int4_matmul import DECODE_MAX_M
+
+    if m > DECODE_MAX_M:
+        return "tensor-core"
+    return f"decode rows<={next(t for t in (1, 2, 4, 8) if m <= t)}"
+
+
+def _int4_case(rng, m: int, k: int, n: int):
+    """Seeded weight quantized by the port's int4 quantizer: (wp, s), and the
+    dequantized (N, K) weight in bf16 that the library yardstick multiplies."""
     import torch
 
     from realtime_whisper_asr_tpu_torch.models.whisper import quant as Q
+
+    w = torch.from_numpy((rng.standard_normal((n, k)) * k ** -0.5).astype(np.float32)).cuda()
+    wp, s = Q.quantize_int4(w)
+    return wp, s, Q.dequant(wp, s).to(torch.bfloat16)
+
+
+def _k2_row(name: str, got, ref, kernel, plain, library, nbytes: float, m: int, k: int,
+            n: int) -> dict:
+    """Checks a K2 output bit for bit against its plain version and times the
+    three calls."""
+    import torch
+
+    torch.cuda.synchronize()
+    if got.shape != (m, n) or got.dtype != ref.dtype or not bool(torch.isfinite(got).all()):
+        raise AssertionError(f"K2 {name}: output {tuple(got.shape)} {got.dtype} not finite / "
+                             f"wrong shape")
+    err = float((got.float() - ref.float()).abs().max())
+    if not torch.equal(got, ref):
+        raise AssertionError(f"K2 {name}: kernel != plain version, max |Δ| {err:.3g}")
+    bound, by = _bound(nbytes, 2 * m * k * n, PEAK_INT8_OPS)
+    return {"max_abs_err": err, "bound_ms": bound, "bound_by": by,
+            "ms": time_cuda_ms(kernel), "plain_ms": time_cuda_ms(plain),
+            "library_ms": time_cuda_ms(library)}
+
+
+def phase_int4() -> dict:
+    """K2's ``int4_matmul`` (int8 in, f32 out) against its plain version at
+    every shape: both are exact (integer sums, then the same rounded f32
+    operations in the same order), so they must be equal bit for bit."""
+    import torch
+
     from realtime_whisper_asr_tpu_torch.ops import int4_matmul as K2
 
     rng = np.random.default_rng(4)
     rows = {}
     for name, m, k, n in INT4_SHAPES:
-        w = torch.from_numpy((rng.standard_normal((n, k)) * k ** -0.5).astype(np.float32)).cuda()
-        wp, s = Q.quantize_int4(w)
+        wp, s, wd = _int4_case(rng, m, k, n)
+        wd = wd.t().contiguous()  # (K, N): x @ W, the bf16 tier's product
         xq = torch.from_numpy(rng.integers(-127, 128, (m, k), dtype=np.int8)).cuda()
-        got = K2.int4_matmul(xq, wp, s)
-        ref = K2.int4_matmul_plain(xq, wp, s)
-        torch.cuda.synchronize()
-        if got.shape != (m, n) or not bool(torch.isfinite(got).all()):
-            raise AssertionError(f"K2 {name}: output {tuple(got.shape)} not finite / wrong shape")
-        err = float((got - ref).abs().max())
-        scale = float(ref.abs().max())
-        if err > 1e-6 * scale:
-            raise AssertionError(f"K2 {name}: max |kernel - plain| {err:.3g} > 1e-6 x {scale:.3g}")
         a = xq.to(torch.bfloat16)
-        wd = Q.dequant(wp, s).t().contiguous().to(torch.bfloat16)  # (K, N) as the bf16 tier
         g = s.shape[0]
-        bound, by = _bound(k // 2 * n + 4 * g * n + m * k + 4 * m * n, 2 * m * k * n,
-                           PEAK_INT8_OPS)
-        row = {
-            "max_abs_err": err, "bound_ms": bound, "bound_by": by,
-            "ms": time_cuda_ms(lambda: K2._int4_matmul_kernel(xq, wp, s)),
-            "plain_ms": time_cuda_ms(lambda: K2.int4_matmul_plain(xq, wp, s)),
-            "library_ms": time_cuda_ms(lambda: torch.matmul(a, wd)),
-        }
-        rows[name] = row
-        print(f"int4 {name:22s} M={m:4d} K={k:5d} N={n:5d} G={g:2d}: kernel_ms "
+        row = rows[name] = _k2_row(
+            f"int4_matmul {name}", K2.int4_matmul(xq, wp, s), K2.int4_matmul_plain(xq, wp, s),
+            lambda: K2._int4_matmul_kernel(xq, wp, s), lambda: K2.int4_matmul_plain(xq, wp, s),
+            lambda: torch.matmul(a, wd),  # the bf16 tier's product
+            k // 2 * n + 4 * g * n + m * k + 4 * m * n, m, k, n)
+        print(f"int4_matmul {name:22s} M={m:4d} K={k:5d} N={n:5d} G={g:2d}: kernel_ms "
               f"{row['ms']:.5f} plain_ms {row['plain_ms']:.5f} library_ms (bf16 matmul, "
-              f"dequantized weight) {row['library_ms']:.5f} bound_ms {bound:.5f} ({by}) "
-              f"max_err {err:.3g}")
-    print(f"int4: kernel equals its plain version at all {len(rows)} shapes")
+              f"dequantized weight) {row['library_ms']:.5f} bound_ms {row['bound_ms']:.5f} "
+              f"({row['bound_by']}) max_err {row['max_abs_err']:.3g}")
+    print(f"int4_matmul: kernel equals its plain version bit for bit at all {len(rows)} shapes")
     return rows
+
+
+def phase_int4_linear() -> dict:
+    """K2's ``int4_linear`` (the whole int4 linear: row quantization,
+    product, ``* sx``, cast, bias) against ``int4_linear_plain`` at every
+    shape, x in bf16 and f32, with and without bias: equal bit for bit.
+    Library: ``F.linear`` of bf16 x with the dequantized bf16 weight (and
+    bias), the bf16 tier's call. Keys (shape name, dtype, bias)."""
+    import torch
+    import torch.nn.functional as F
+
+    from realtime_whisper_asr_tpu_torch.ops import int4_matmul as K2
+
+    rng = np.random.default_rng(6)
+    rows = {}
+    for name, m, k, n in INT4_SHAPES:
+        wp, s, wd = _int4_case(rng, m, k, n)
+        x32 = torch.from_numpy(rng.standard_normal((m, k)).astype(np.float32)).cuda()
+        b32 = torch.from_numpy(rng.standard_normal(n).astype(np.float32)).cuda()
+        g = s.shape[0]
+        for dtype in (torch.bfloat16, torch.float32):
+            x, xb = x32.to(dtype), x32.to(torch.bfloat16)
+            for bias in (None, b32.to(dtype)):
+                bb = None if bias is None else bias.to(torch.bfloat16)
+                size = x.element_size()
+                row = _k2_row(
+                    f"int4_linear {name} {dtype} bias={bias is not None}",
+                    K2.int4_linear(x, wp, s, bias), K2.int4_linear_plain(x, wp, s, bias),
+                    lambda: K2._int4_linear_kernel(x, wp, s, bias),
+                    lambda: K2.int4_linear_plain(x, wp, s, bias),
+                    lambda: F.linear(xb, wd, bb),
+                    size * m * k + k // 2 * n + 4 * g * n + size * (m * n + (bias is not None) * n),
+                    m, k, n)
+                key = (name, "bf16" if dtype == torch.bfloat16 else "f32", bias is not None)
+                rows[key] = row
+                print(f"int4_linear {name:22s} M={m:4d} K={k:5d} N={n:5d} {key[1]:4s} "
+                      f"bias={int(key[2])}: kernel_ms {row['ms']:.5f} plain_ms "
+                      f"{row['plain_ms']:.5f} library_ms (bf16 F.linear, dequantized weight) "
+                      f"{row['library_ms']:.5f} bound_ms {row['bound_ms']:.5f} "
+                      f"({row['bound_by']})")
+    print(f"int4_linear: kernel equals its plain version bit for bit at all {len(rows)} cases")
+    return rows
+
+
+def phase_int4_linear_kernels() -> dict:
+    """The CUDA kernels one large-v3 ``Int4Linear`` forward launches (bf16,
+    1280 -> 1280 with bias: the cross value projection), counted by the
+    profiler at M = 1 and M = 800 after a warm-up call; more than 2 fails.
+    Also the host's time to issue one forward at M = 1 (mean over 300 calls,
+    the card left to drain afterwards) beside a bf16 ``nn.Linear`` of the same
+    shape: the decode loop is host-bound, so this is the linear's cost there."""
+    import torch
+
+    from realtime_whisper_asr_tpu_torch.models.whisper import quant as Q
+    from realtime_whisper_asr_tpu_torch.models.whisper.model import Int4Linear
+
+    rng = np.random.default_rng(7)
+    lin = Int4Linear(1280, 1280, dtype=torch.bfloat16, device="cuda")
+    w = torch.from_numpy((rng.standard_normal((1280, 1280)) / 36).astype(np.float32)).cuda()
+    q, s = Q.quantize_int4(w)
+    lin.load_state_dict({"q": q, "s": s, "bias": torch.zeros(1280, dtype=torch.bfloat16)})
+    counts = {}
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    for m in (1, 800):
+        x = torch.from_numpy(rng.standard_normal((1, m, 1280)).astype(np.float32))
+        x = x.cuda().bfloat16()
+        with torch.inference_mode():
+            lin(x)
+            torch.cuda.synchronize()
+            with torch.profiler.profile(activities=acts) as prof:
+                lin(x)
+                torch.cuda.synchronize()
+        events = [e for e in prof.key_averages()  # kernels, copies and sets on the card
+                  if e.device_type == torch.autograd.DeviceType.CUDA]
+        n = counts[m] = sum(e.count for e in events)
+        print(f"Int4Linear forward, large-v3 1280 -> 1280 bf16, M = {m}: {n} device "
+              f"operation(s) traced: " + "; ".join(f"{e.key[:48]} x{e.count}" for e in events))
+        if not 1 <= n <= 2:
+            raise AssertionError(f"Int4Linear at M = {m} launched {n} device operations "
+                                 f"(allowed 1-2; 0 means the profiler saw none)")
+    dense = torch.nn.Linear(1280, 1280, dtype=torch.bfloat16, device="cuda")
+    x = torch.from_numpy(rng.standard_normal((1, 1, 1280)).astype(np.float32)).cuda().bfloat16()
+    host_us = {}
+    with torch.inference_mode():
+        for name, mod in (("Int4Linear", lin), ("bf16 nn.Linear", dense)):
+            for _ in range(20):
+                mod(x)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(300):
+                mod(x)
+            host_us[name] = (time.perf_counter() - t0) / 300 * 1e6
+            torch.cuda.synchronize()
+    print("host time to issue one forward at M = 1 (mean of 300): " +
+          ", ".join(f"{k} {v:.1f} us" for k, v in host_us.items()))
+    return counts
 
 
 def phase_chain() -> dict:
@@ -685,6 +855,8 @@ def main() -> int:
     phase_build()
     logmel_rows = phase_logmel()
     int4_rows = phase_int4()
+    linear_rows = phase_int4_linear()
+    phase_int4_linear_kernels()
     chain_rows = phase_chain()
     phase_golden(guard)
     near_ties = phase_golden_quant()  # printed again at the end
@@ -699,8 +871,10 @@ def main() -> int:
     for name, source, replaces, count, rows, main_row in (
         ("logmel", src + "logmel.cu", "realtime_whisper_asr_tpu/ops/logmel.py:76",
          launches[None]["logmel"], logmel_rows, (16, 128)),  # the offline clip's bucket
-        ("int4_matmul", src + "int4_matmul.cu", "realtime_whisper_asr_tpu/ops/int4_matmul.py:44",
-         launches["int4"]["int4"], int4_rows, "decode fc1"),
+        # the main path calls int4_linear (bf16, with bias): its row stands for
+        # K2; the error is the largest over int4_matmul's and int4_linear's rows
+        ("int4_linear", src + "int4_matmul.cu", "realtime_whisper_asr_tpu/ops/int4_matmul.py:44",
+         launches["int4"]["int4"], {**int4_rows, **linear_rows}, ("decode fc1", "bf16", True)),
         ("matmul_chain", src + "matmul_chain.cu", "tools/microbench_encoder.py:127",
          chain_launches, chain_rows, 32),
     ):

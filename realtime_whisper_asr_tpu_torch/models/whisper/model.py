@@ -38,7 +38,7 @@ from torch import nn
 from realtime_whisper_asr_tpu_torch.device import resolve_device
 from realtime_whisper_asr_tpu_torch.models.whisper.config import WhisperConfig
 from realtime_whisper_asr_tpu_torch.models.whisper.quant import int4_groups, tier_layout
-from realtime_whisper_asr_tpu_torch.ops.int4_matmul import int4_matmul
+from realtime_whisper_asr_tpu_torch.ops.int4_matmul import int4_linear
 from realtime_whisper_asr_tpu_torch.ops.int8_matmul import int8_matmul, quantize_rows
 
 _NEG = -1e9  # additive mask value (as the JAX package)
@@ -67,9 +67,9 @@ def _no_tf32_conv():
 
 
 class _QuantLinear(nn.Module):
-    """Weight-only quantized linear: buffers ``q`` (int8) and ``s`` (f32
-    scales), a bias in the compute dtype. The activations are quantized per
-    row on each call (``quantize_rows``), as the JAX package's ``_linear``."""
+    """Weight-only quantized linear's buffers: ``q`` (int8), ``s`` (f32
+    scales) and a bias in the compute dtype. The activations are quantized
+    per row on each call, as the JAX package's ``_linear``."""
 
     def __init__(self, d_in: int, d_out: int, q_shape, s_shape, bias: bool = True,
                  dtype=None, device=None):
@@ -82,39 +82,36 @@ class _QuantLinear(nn.Module):
         else:
             self.register_parameter("bias", None)
 
-    def _product(self, xq: torch.Tensor, sx: torch.Tensor, dtype) -> torch.Tensor:
-        raise NotImplementedError
-
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        xq, sx = quantize_rows(x)
-        lead = x.shape[:-1]
-        y = self._product(xq.reshape(-1, self.in_features), sx.reshape(-1, 1), x.dtype)
-        y = y.reshape(*lead, self.out_features)
-        return y if self.bias is None else y + self.bias.to(x.dtype)
-
 
 class Int8Linear(_QuantLinear):
-    """int8 weights q (out, in) with per-output scales s (out,): an exact
-    int32 product, then ``y * sx * s`` in that order, cast to x's dtype."""
+    """int8 weights q (out, in) with per-output scales s (out,): x quantized
+    by ``quantize_rows``, an exact int32 product, then ``y * sx * s`` in that
+    order, cast to x's dtype, then ``+ bias``."""
 
     def __init__(self, d_in: int, d_out: int, bias: bool = True, dtype=None, device=None):
         super().__init__(d_in, d_out, (d_out, d_in), (d_out,), bias, dtype, device)
 
-    def _product(self, xq, sx, dtype):
-        return (int8_matmul(xq, self.q).float() * sx * self.s).to(dtype)
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        xq, sx = quantize_rows(x)
+        y = int8_matmul(xq.reshape(-1, self.in_features), self.q).float()
+        y = (y * sx.reshape(-1, 1) * self.s).to(x.dtype).reshape(*x.shape[:-1], self.out_features)
+        return y if self.bias is None else y + self.bias.to(x.dtype)
 
 
 class Int4Linear(_QuantLinear):
     """Nibble-packed int4 weights q (in/2, out) with per-group scales s
-    (G, out): the packed-int4 kernel (K2) on the card, its plain version on
-    the CPU, then ``y * sx``, cast to x's dtype."""
+    (G, out): the whole linear (row quantization, product, ``* sx``, cast,
+    bias) is ``int4_linear``, the packed-int4 kernel family (K2) on the card
+    in at most two launches, its plain version on the CPU."""
 
     def __init__(self, d_in: int, d_out: int, bias: bool = True, dtype=None, device=None):
         super().__init__(d_in, d_out, (d_in // 2, d_out), (int4_groups(d_in), d_out), bias,
                          dtype, device)
 
-    def _product(self, xq, sx, dtype):
-        return (int4_matmul(xq, self.q, self.s) * sx).to(dtype)
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        bias = None if self.bias is None else self.bias.to(x.dtype)
+        y = int4_linear(x.reshape(-1, self.in_features).contiguous(), self.q, self.s, bias)
+        return y.reshape(*x.shape[:-1], self.out_features)
 
 
 class Int8Embedding(nn.Module):

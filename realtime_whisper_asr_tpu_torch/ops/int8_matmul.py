@@ -11,15 +11,27 @@ sums pass 2^24), so it is never used here.
 
 from __future__ import annotations
 
+import functools
+
 import torch
 import torch.nn.functional as F
 
 
+@functools.lru_cache(maxsize=None)
+def _divisor(device: torch.device) -> torch.Tensor:
+    return torch.tensor(127.0, device=device)
+
+
 def quantize_rows(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     """Dynamic per-row absmax int8 quantization of activations, as the JAX
-    package's ``_linear``: (…, K) -> (xq int8 (…, K), sx f32 (…, 1))."""
+    package's ``_linear``: (…, K) -> (xq int8 (…, K), sx f32 (…, 1)).
+
+    Both divisions are IEEE f32 divisions on either device. The absmax is
+    divided by a 127 that lies on x's device: on the card, torch divides by
+    a Python or CPU scalar as a multiply by its rounded reciprocal, which can
+    differ in the last bit (the int4 kernel divides, as the JAX package)."""
     x32 = x.float()
-    sx = torch.clamp(x32.abs().amax(dim=-1, keepdim=True) / 127.0, min=1e-12)
+    sx = torch.clamp(x32.abs().amax(dim=-1, keepdim=True) / _divisor(x32.device), min=1e-12)
     xq = torch.clamp(torch.round(x32 / sx), -127, 127).to(torch.int8)
     return xq, sx
 

@@ -123,3 +123,14 @@ def test_wrapper_checks_its_inputs():
     with pytest.raises(ValueError, match="cuda or cpu"):
         K3.matmul_chain(tx.to("meta"), tws.to("meta"))
     assert K3.chain_launches == 0  # the CPU path never counts a launch
+
+
+def test_kernel_path_raises_without_a_card():
+    """The kernel path launches or raises: on a host without a card it never
+    falls back to the plain version."""
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: chip_smoke.py runs the kernel path")
+    _, _, tx, tws = _inputs(2)
+    with pytest.raises(Exception):
+        K3._matmul_chain_kernel(tx, tws)
+    assert K3.chain_launches == 0
