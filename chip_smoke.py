@@ -7,8 +7,10 @@ Phases, each failing the run with a non-zero exit:
   1. card: name and power limit, TF32 settings, versions;
   2. build: the hand-written kernels from ``realtime_whisper_asr_tpu_torch/csrc``
      with nvcc for sm_90a;
-  3. the log-mel kernel against its plain torch version and an f64 numpy
-     oracle at 8/16/30 s x 80/128 mels, with times;
+  3. the log-mel kernel (K1, a real FFT in shared memory) against its plain
+     torch version and an f64 numpy oracle at 8/16/30 s x 80/128 mels, a
+     ragged last block (801 frames) and a 1 s window, with times at a cold
+     and a warm L2 beside its bound and the dense-DFT design's bound;
   4. golden parity at f32: the committed test-tiny weights must reproduce the
      recorded offline tokens and streaming text of tests/fixtures/golden;
   5. the main path at full width: large-v3 in bf16 with seeded random weights,
@@ -107,10 +109,11 @@ def check_logmel_close(ours: np.ndarray, ref: np.ndarray, what: str) -> None:
                              f"{diff.mean():.3g}, max {diff.max():.3g}")
 
 
-def time_cuda_ms(fn, reps: int = 30) -> float:
+def time_cuda_ms(fn, reps: int = 30, cold: bool = True) -> float:
     """Median device time of fn() in ms: CUDA events around each call, with
-    the 50 MB L2 flushed before each (the main path finds it cold). A ~1 ms
-    spin kernel ahead of the start event keeps the card busy while the host
+    the 50 MB L2 flushed before each when ``cold`` (the main path finds it
+    cold) and left holding the previous call's data otherwise. A ~1 ms spin
+    kernel ahead of the start event keeps the card busy while the host
     enqueues the events and fn's launches, so the span holds device time
     only, not Python's launch overhead."""
     import torch
@@ -120,7 +123,8 @@ def time_cuda_ms(fn, reps: int = 30) -> float:
         fn()
     times = []
     for _ in range(reps):
-        flush.zero_()
+        if cold:
+            flush.zero_()
         torch.cuda._sleep(2_000_000)
         start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
         start.record()
@@ -182,61 +186,89 @@ def phase_build() -> None:
                         print(f"  ptxas: {line.strip()}")
 
 
+#: K1's cases (label, samples, mels): the 8/16/30 s window buckets at both
+#: mel counts, a ragged last block (801 frames) and a short window
+LOGMEL_CASES = tuple((f"{s} s", s * SR, m) for s in (8, 16, 30) for m in (80, 128)) + (
+    ("8 s + 160", 8 * SR + 160, 128), ("1 s", SR, 80))
+
+
+def logmel_fft_flops(n_frames: int, nnz: int) -> int:
+    """f32 operations of K1's FFT design (csrc/logmel.cu), an add or a
+    multiply as 1, a complex multiply as 6, an FMA as 2. Per frame: the
+    window (400); 25 radix-8 butterflies, each 24 complex adds, 8 complex
+    multiplies by W_8 and 8 by W_200 (144); 40 radix-5 butterflies with
+    their 5 W_25 twiddles (48 + 30) and 40 without (48); 101 real-split
+    pairs (halves 8, W_400 6, the two bins 4, two powers 6); the mel sums,
+    2 per nonzero weight. The log10 of each output is not counted."""
+    per_frame = 400 + 25 * 144 + 40 * (48 + 30) + 40 * 48 + 101 * 24
+    return n_frames * (per_frame + 2 * nnz)
+
+
 def phase_logmel() -> dict:
+    """K1 against its plain version and the f64 oracle at every case, timed
+    at a cold and a warm L2 beside the plain version and the library. Bound:
+    the FFT design's f32 operations (``logmel_fft_flops``) over 67 TFLOP/s
+    against the bytes that must move (audio in, tables, log-mel out) over
+    3.35 TB/s; the dense-DFT design's bound beside it."""
     import torch
 
     from realtime_whisper_asr_tpu_torch.ops import logmel
-    from realtime_whisper_asr_tpu_torch.ops import mel as melmod
 
     rows = {}
-    for seconds in (8, 16, 30):
-        for n_mels in (80, 128):
-            audio = speechy_audio(seconds)
-            a = torch.from_numpy(audio).cuda()
-            kern = logmel.log_mel_spectrogram(a, n_mels)
-            plain = logmel.log_mel_spectrogram_plain(a, n_mels)
-            torch.cuda.synchronize()
-            oracle = logmel_oracle(audio, n_mels)
-            kern_np, plain_np = kern.cpu().numpy(), plain.cpu().numpy()
-            if kern_np.shape != (len(audio) // 160, n_mels):
-                raise AssertionError(f"kernel output shape {kern_np.shape}")
-            check_logmel_close(kern_np, oracle, f"kernel vs f64 oracle {seconds}s/{n_mels}")
-            check_logmel_close(plain_np, oracle, f"plain vs f64 oracle {seconds}s/{n_mels}")
-            check_logmel_close(kern_np, plain_np, f"kernel vs plain {seconds}s/{n_mels}")
-            err = float(np.abs(kern_np - plain_np).max())
+    for label, n, n_mels in LOGMEL_CASES:
+        audio = speechy_audio(-(-n // SR))[:n]
+        a = torch.from_numpy(audio).cuda()
+        kern = logmel.log_mel_spectrogram(a, n_mels)
+        plain = logmel.log_mel_spectrogram_plain(a, n_mels)
+        torch.cuda.synchronize()
+        oracle = logmel_oracle(audio, n_mels)
+        kern_np, plain_np = kern.cpu().numpy(), plain.cpu().numpy()
+        if kern_np.shape != (n // 160, n_mels):
+            raise AssertionError(f"kernel output shape {kern_np.shape}")
+        what = f"{label}/{n_mels}"
+        check_logmel_close(kern_np, oracle, f"kernel vs f64 oracle {what}")
+        check_logmel_close(plain_np, oracle, f"plain vs f64 oracle {what}")
+        check_logmel_close(kern_np, plain_np, f"kernel vs plain {what}")
+        err = float(np.abs(kern_np - plain_np).max())
 
-            window = torch.hann_window(400, device="cuda")
-            mel_t = logmel._bases(a.device, n_mels)[2]
+        window = torch.hann_window(400, device="cuda")
+        mel_t = logmel._bases(a.device, n_mels)[2]
 
-            def library():  # yardstick only: the port never calls torch.stft
-                spec = torch.stft(a, 400, 160, window=window, center=True, pad_mode="reflect",
-                                  return_complex=True)[:, :-1]
-                return torch.log10(torch.clamp(spec.abs().square().t() @ mel_t, min=1e-10))
+        def library():  # yardstick only: the port never calls torch.stft
+            spec = torch.stft(a, 400, 160, window=window, center=True, pad_mode="reflect",
+                              return_complex=True)[:, :-1]
+            return torch.log10(torch.clamp(spec.abs().square().t() @ mel_t, min=1e-10))
 
-            # the work of K1's design: a dense real DFT as two f32 products
-            # (an FFT would need ~20x fewer operations), then each mel filter
-            # over its nonzero bins only, as the kernel sums it
-            n_frames = len(audio) // 160
-            nnz = int(np.count_nonzero(melmod.mel_filterbank(n_mels, 400)))
-            flops = 2 * n_frames * 400 * 201 * 2 + 2 * n_frames * nnz
-            nbytes = 4 * (len(audio) + 2 * 400 * 201 + nnz + 2 * n_mels + n_frames * n_mels)
-            row = {
-                "max_abs_err": err,
-                "ms": time_cuda_ms(lambda: logmel._log10_mel_kernel(a, n_mels)),
-                "plain_ms": time_cuda_ms(lambda: logmel._log10_mel_plain(a, n_mels)),
-                "library_ms": time_cuda_ms(library),
-                "bound_ms": 1e3 * max(flops / PEAK_F32_FLOPS, nbytes / PEAK_BYTES),
-                "bound_by": "operations" if flops / PEAK_F32_FLOPS > nbytes / PEAK_BYTES else "bytes",
-            }
-            rows[(seconds, n_mels)] = row
-            print(f"logmel {seconds:2d} s / {n_mels:3d} mels: kernel_ms {row['ms']:.5f} "
-                  f"plain_ms {row['plain_ms']:.5f} library_ms {row['library_ms']:.5f} "
-                  f"bound_ms {row['bound_ms']:.5f} ({row['bound_by']}) max_err {err:.3g}")
+        def kernel():
+            return logmel._log10_mel_kernel(a, n_mels)
+
+        n_frames = n // 160
+        nnz = logmel.mel_table(n_mels)[0].size
+        table_bytes = 4 * (logmel.fft_table().size + nnz + 2 * n_mels + 1)
+        flops = logmel_fft_flops(n_frames, nnz)
+        bound, by = _bound(4 * (n + n_frames * n_mels) + table_bytes, flops, PEAK_F32_FLOPS)
+        # the first port's design: a dense real DFT as two f32 products, then
+        # each mel filter over its nonzero bins
+        dense, _ = _bound(4 * (n + 2 * 400 * 201 + nnz + 2 * n_mels + n_frames * n_mels),
+                          2 * n_frames * 400 * 201 * 2 + 2 * n_frames * nnz, PEAK_F32_FLOPS)
+        row = rows[(label, n_mels)] = {
+            "max_abs_err": err,
+            "ms": time_cuda_ms(kernel), "warm_ms": time_cuda_ms(kernel, cold=False),
+            "plain_ms": time_cuda_ms(lambda: logmel._log10_mel_plain(a, n_mels)),
+            "library_ms": time_cuda_ms(library),
+            "library_warm_ms": time_cuda_ms(library, cold=False),
+            "bound_ms": bound, "bound_by": by, "dense_bound_ms": dense,
+        }
+        print(f"logmel {label:>9s} / {n_mels:3d} mels ({n_frames} frames): kernel_ms "
+              f"{row['ms']:.5f} (warm L2 {row['warm_ms']:.5f}) plain_ms {row['plain_ms']:.5f} "
+              f"library_ms {row['library_ms']:.5f} (warm L2 {row['library_warm_ms']:.5f}) "
+              f"bound_ms {bound:.5f} ({by}; FFT {flops / 1e6:.2f} MFLOP) "
+              f"dense_dft_bound_ms {dense:.5f} max_err {err:.3g}")
     silence = logmel.log_mel_spectrogram(torch.zeros(SR, device="cuda"), 80).cpu().numpy()
     if not np.allclose(silence, silence.flat[0]):
         raise AssertionError("silence does not give a constant floor")
-    print("logmel: all 6 cases within tolerance of the plain version and the f64 oracle; "
-          "silence is a constant floor")
+    print(f"logmel: all {len(rows)} cases within tolerance of the plain version and the f64 "
+          f"oracle; silence is a constant floor")
     return rows
 
 
@@ -870,7 +902,7 @@ def main() -> int:
     entries = []
     for name, source, replaces, count, rows, main_row in (
         ("logmel", src + "logmel.cu", "realtime_whisper_asr_tpu/ops/logmel.py:76",
-         launches[None]["logmel"], logmel_rows, (16, 128)),  # the offline clip's bucket
+         launches[None]["logmel"], logmel_rows, ("16 s", 128)),  # the offline clip's bucket
         # the main path calls int4_linear (bf16, with bias): its row stands for
         # K2; the error is the largest over int4_matmul's and int4_linear's rows
         ("int4_linear", src + "int4_matmul.cu", "realtime_whisper_asr_tpu/ops/int4_matmul.py:44",
