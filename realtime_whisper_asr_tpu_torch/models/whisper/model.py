@@ -42,6 +42,7 @@ from realtime_whisper_asr_tpu_torch.ops.int4_matmul import int4_linear
 from realtime_whisper_asr_tpu_torch.ops.int8_matmul import int8_matmul, quantize_rows
 
 _NEG = -1e9  # additive mask value (as the JAX package)
+_INV_SQRT2_16 = 0.70703125  # 2**-0.5 rounded to bf16 (and to f16 alike)
 
 
 class LayerNorm(nn.LayerNorm):
@@ -50,6 +51,38 @@ class LayerNorm(nn.LayerNorm):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return F.layer_norm(x.float(), self.normalized_shape, self.weight.float(),
                             self.bias.float(), self.eps).to(x.dtype)
+
+
+def _gelu(x: torch.Tensor) -> torch.Tensor:
+    """Exact (erf) GELU. At f32 torch's; at a 16-bit dtype the JAX package's
+    evaluation (``jax.nn.gelu(approximate=False)``), op by op in that dtype:
+    ``0.5·x · erfc(−x · 2^-½)`` with the constant rounded to the dtype."""
+    if x.dtype == torch.float32:
+        return F.gelu(x)
+    return (x * 0.5) * torch.special.erfc(-x * _INV_SQRT2_16)
+
+
+class Linear(nn.Linear):
+    """Dense linear that rounds where the JAX package's ``_linear`` does: at a
+    16-bit dtype the product is rounded to the dtype, then the bias is added
+    in it (the fused call would add it before its one rounding). At f32 the
+    fused call."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if x.dtype == torch.float32 or self.bias is None:
+            return F.linear(x, self.weight, self.bias)
+        return F.linear(x, self.weight) + self.bias
+
+
+class Conv1d(nn.Conv1d):
+    """Convolution that rounds as the JAX package's conv stem: at a 16-bit
+    dtype the bias is added after the rounded product; at f32 the fused
+    call."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if x.dtype == torch.float32 or self.bias is None:
+            return super().forward(x)
+        return self._conv_forward(x, self.weight, None) + self.bias[:, None]
 
 
 @contextlib.contextmanager
@@ -182,8 +215,8 @@ class SelfAttention(nn.Module):
     def __init__(self, d: int, n_head: int, **factory):
         super().__init__()
         self.n_head = n_head
-        self.qkv = nn.Linear(d, 3 * d, **factory)  # fused wq|wk|wv, bias bq|0|bv
-        self.out = nn.Linear(d, d, **factory)
+        self.qkv = Linear(d, 3 * d, **factory)  # fused wq|wk|wv, bias bq|0|bv
+        self.out = Linear(d, d, **factory)
 
     def project(self, x: torch.Tensor):
         q, k, v = self.qkv(x).chunk(3, dim=-1)
@@ -195,10 +228,10 @@ class CrossAttention(nn.Module):
     def __init__(self, d: int, n_head: int, **factory):
         super().__init__()
         self.n_head = n_head
-        self.query = nn.Linear(d, d, **factory)
-        self.key = nn.Linear(d, d, bias=False, **factory)
-        self.value = nn.Linear(d, d, **factory)
-        self.out = nn.Linear(d, d, **factory)
+        self.query = Linear(d, d, **factory)
+        self.key = Linear(d, d, bias=False, **factory)
+        self.value = Linear(d, d, **factory)
+        self.out = Linear(d, d, **factory)
 
 
 class Block(nn.Module):
@@ -212,8 +245,8 @@ class Block(nn.Module):
             self.cross_ln = LayerNorm(d, **factory)
             self.cross = CrossAttention(d, n_head, **factory)
         self.mlp_ln = LayerNorm(d, **factory)
-        self.fc1 = nn.Linear(d, 4 * d, **factory)
-        self.fc2 = nn.Linear(4 * d, d, **factory)
+        self.fc1 = Linear(d, 4 * d, **factory)
+        self.fc2 = Linear(4 * d, d, **factory)
 
     def mha_block(self, x: torch.Tensor) -> torch.Tensor:
         """Unmasked full-sequence self-attention (the encoder's)."""
@@ -222,7 +255,7 @@ class Block(nn.Module):
         return x + self.attn.out(_merge_heads(o))
 
     def mlp_block(self, x: torch.Tensor) -> torch.Tensor:
-        h = F.gelu(self.fc1(self.mlp_ln(x)))  # exact (erf) GELU
+        h = _gelu(self.fc1(self.mlp_ln(x)))
         return x + self.fc2(h)
 
 
@@ -239,8 +272,8 @@ class AudioEncoder(nn.Module):
     def __init__(self, cfg: WhisperConfig, **factory):
         super().__init__()
         d = cfg.n_audio_state
-        self.conv1 = nn.Conv1d(cfg.n_mels, d, 3, padding=1, **factory)
-        self.conv2 = nn.Conv1d(d, d, 3, stride=2, padding=1, **factory)
+        self.conv1 = Conv1d(cfg.n_mels, d, 3, padding=1, **factory)
+        self.conv2 = Conv1d(d, d, 3, stride=2, padding=1, **factory)
         self.register_buffer("pos_emb", torch.empty(cfg.n_audio_ctx, d, **factory))
         self.blocks = nn.ModuleList(
             Block(d, cfg.n_audio_head, cross=False, **factory) for _ in range(cfg.n_audio_layer))
@@ -251,8 +284,8 @@ class AudioEncoder(nn.Module):
         window shorter than 30 s (the 8/16 s buckets) takes the first T/2
         rows of the positional table. Convolutions in IEEE f32 when f32."""
         with _no_tf32_conv():
-            x = F.gelu(self.conv1(mel.transpose(1, 2)))
-            x = F.gelu(self.conv2(x)).transpose(1, 2)
+            x = _gelu(self.conv1(mel.transpose(1, 2)))
+            x = _gelu(self.conv2(x)).transpose(1, 2)
         return x + self.pos_emb[: x.shape[1]].to(x.dtype)
 
 
