@@ -15,7 +15,15 @@ Phases, each failing the run with a non-zero exit:
      recorded offline tokens and streaming text of tests/fixtures/golden;
   5. the main path at full width: large-v3 in bf16 with seeded random weights,
      one offline 16 s transcribe and an 8 s stream at 1 s chunks through
-     OnlineASRProcessor, with every kernel launch counted;
+     OnlineASRProcessor, with every kernel launch counted (the decode loop's
+     steps as CUDA graphs: the launches of each replay count) and the host
+     syncs of each window's decode counted by torch's sync debug mode
+     (at most 1 + ceil((max_new - 1) / K)); tick p50/p95, decode ms per
+     token, the card's busy share, a PhaseTimer split of a tick and the
+     graphs' captures, capture seconds and memory, beside PR 5's figures;
+     then the graph path's packed result against the same step run
+     uncaptured on the card, bit for bit, at the 16 s and 8 s windows, each
+     with and without a draft;
   6. the packed-int4 kernel family (K2) against its plain versions, bit for
      bit, at the large-v3 decode shapes (M = 1), its prefill spans (M = 2,
      4, 8 and 24), the 16 s cross-K/V shape (M = 800) and the test-tiny
@@ -26,9 +34,10 @@ Phases, each failing the run with a non-zero exit:
   7. golden parity of the quantized tiers at f32: ``int8-all`` and ``int4``
      on the golden weights reproduce the recorded matrix rows;
   8. the int4 tier at full width: phase 5's run with large-v3 quantized at
-     load, K2's launches equal to the count the model's structure predicts
-     (per layer, 2 cross-K/V linears per encoded window and 6 linears per
-     decoder pass, each 1 launch at M <= 8 and 2 above), and every K2 code
+     load, K2's launches (replays included) equal to the count the model's
+     structure predicts (per layer, 2 cross-K/V linears per encoded window
+     and 6 linears per decoder pass: each prefill span, each warm-up step and
+     each replayed step, 1 launch at M <= 8 and 2 above), and every K2 code
      path it took among those phase 6 held against the plain version;
   9. the fused matmul chain (K3) against its plain version at T = 800,
      D = 1280, k in {1, 8, 32}, one launch per chain, with times; then the
@@ -42,10 +51,12 @@ from __future__ import annotations
 
 import json
 import logging
+import math
 import os
 import subprocess
 import sys
 import time
+import warnings
 
 import numpy as np
 
@@ -57,6 +68,15 @@ PEAK_F32_FLOPS = 67e12
 PEAK_BF16_FLOPS = 989e12
 PEAK_INT8_OPS = 1979e12
 PEAK_BYTES = 3.35e12
+#: PR 5's eager decode loop (one host sync per token), large-v3 at the
+#: 32-token cap, chip call 35 on "NVIDIA H100 80GB HBM3, 700.00 W" (PERF.md
+#: section 5): printed beside this run's figures
+PR5_CALL35 = {
+    None: {"tick_p50_ms": 1087.5, "host_ms_per_token": 36.02, "kernel_ms_per_token": 4.84,
+           "busy": "13%"},
+    "int4": {"tick_p50_ms": 981.4, "host_ms_per_token": 37.85, "kernel_ms_per_token": 4.36,
+             "busy": "12%"},
+}
 
 
 def speechy_audio(seconds: float, seed: int = 0) -> np.ndarray:
@@ -334,12 +354,14 @@ def phase_full_width(guard: FailOnLog, quantization: str | None = None) -> dict:
     from realtime_whisper_asr_tpu_torch.asr import TorchWhisperASR
     from realtime_whisper_asr_tpu_torch.models.whisper import decode as D
     from realtime_whisper_asr_tpu_torch.ops import int4_matmul, logmel
+    from realtime_whisper_asr_tpu_torch.utils.profiling import PhaseTimer, measure_sync_floor
 
     label = f"large-v3 {quantization or 'bf16'}"
     t0 = time.perf_counter()
     asr = TorchWhisperASR(model_size="large-v3", dtype=torch.bfloat16, device="cuda", seed=0,
                           quantization=quantization)
     asr.transcribe_kargs["max_total_tokens"] = 32  # random weights never emit EOT
+    loop = asr.decode_loop
     torch.cuda.synchronize()
     print(f"{label}: random init in {time.perf_counter() - t0:.1f} s")
     results = []
@@ -351,11 +373,12 @@ def phase_full_width(guard: FailOnLog, quantization: str | None = None) -> dict:
 
     asr.transcribe = recording_transcribe
     # rows of every K2 call site: per encoded window the cross-K/V linears
-    # (B x audio_ctx rows), per decoder pass (prefill span or greedy step)
-    # the six block linears (B x tokens rows)
-    rows = {"windows": [], "passes": []}
-    for name, key in (("precompute_cross_kv", "windows"), ("decode_span", "passes"),
-                      ("decode_step", "passes")):
+    # (B x audio_ctx rows), per prefill span the six block linears (B x
+    # tokens rows). The loop's steps (B = 1 row each) are counted by the
+    # DecodeLoop: its warm-up steps run, a capture records launches and runs
+    # none, and each replay runs K steps
+    rows = {"windows": [], "spans": []}
+    for name, key in (("precompute_cross_kv", "windows"), ("decode_span", "spans")):
         inner = getattr(asr.model, name)
 
         def counted(first, *args, _inner=inner, _key=key, **kwargs):
@@ -364,24 +387,46 @@ def phase_full_width(guard: FailOnLog, quantization: str | None = None) -> dict:
             return _inner(first, *args, **kwargs)
 
         setattr(asr.model, name, counted)
+    # host syncs of each window's decode: (seen, allowed, whether it captured)
+    syncs: list[tuple[int, int, bool]] = []
+    greedy_decode = D.greedy_decode
+
+    def sync_counted_decode(model, xa, opts, plan, *args, **kwargs):
+        captures = loop.stats["captures"]
+        torch.cuda.set_sync_debug_mode("warn")
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            res = greedy_decode(model, xa, opts, plan, *args, **kwargs)
+        torch.cuda.set_sync_debug_mode(0)
+        seen = sum("synchroniz" in str(w.message) for w in caught)
+        syncs.append((seen, 1 + math.ceil((plan.max_new - 1) / loop.k),
+                      loop.stats["captures"] > captures))
+        return res
+
     offline_audio = np.concatenate([golden_audio(i) for i in range(2)])  # 16 s
     stream_audio = golden_audio(2)  # 8 s
     torch.cuda.reset_peak_memory_stats()
 
     # ---- the main path, with the launch counts read around it
+    D.greedy_decode = sync_counted_decode
     logmel.logmel_launches = 0
     int4_matmul.int4_launches = 0
     rows["windows"].clear()
-    rows["passes"].clear()
+    rows["spans"].clear()
+    stats0 = dict(loop.stats)
     t0 = time.perf_counter()
     asr.transcribe(offline_audio)
     torch.cuda.synchronize()
     offline_s = time.perf_counter() - t0
     tick_ms: list[float] = []
     run_stream(asr, stream_audio, guard, tick_ms)
+    steps = (loop.stats["warmup_steps"] - stats0["warmup_steps"]
+             + loop.k * (loop.stats["replays"] - stats0["replays"]))
     launches = {"logmel": logmel.logmel_launches, "int4": int4_matmul.int4_launches,
-                "passes": len(rows["passes"])}
+                "passes": len(rows["spans"]) + steps}
     # ----
+    D.greedy_decode = greedy_decode
+    graphs = {k: loop.stats[k] - stats0[k] for k in loop.stats}
 
     ticks = 1 + len(stream_audio) // SR
     if asr.counters["ticks"] != ticks or len(results) != ticks:
@@ -390,6 +435,12 @@ def phase_full_width(guard: FailOnLog, quantization: str | None = None) -> dict:
     if launches["logmel"] != asr.counters["ticks"]:
         raise AssertionError(f"logmel launched {launches['logmel']} times for {ticks} "
                              f"encoded windows")
+    if graphs["replays"] == 0 or graphs["eager_steps"] != 0:
+        raise AssertionError(f"the decode loop did not run as CUDA graphs: {graphs}")
+    if not all(1 <= seen <= allowed for seen, allowed, captured in syncs if not captured):
+        raise AssertionError(f"host syncs per window (seen, allowed, captured): {syncs}")
+    if all(captured for _, _, captured in syncs):
+        raise AssertionError(f"every window captured a graph; no replay-only window: {syncs}")
     # K2 serves every int4 product: per encoded window the cross key and
     # value of each decoder layer, per decoder pass each layer's fused qkv,
     # self out, cross query, cross out, fc1 and fc2 (the head is int8); an
@@ -401,13 +452,16 @@ def phase_full_width(guard: FailOnLog, quantization: str | None = None) -> dict:
     def per_linear(m: int) -> int:
         return 1 if m <= int4_matmul.DECODE_MAX_M else 2
 
+    passes = rows["spans"] + [1] * steps
     win = sum(per_linear(m) for m in rows["windows"])
-    dec = sum(per_linear(m) for m in rows["passes"])
+    dec = sum(per_linear(m) for m in passes)
     predicted = asr.cfg.n_text_layer * (2 * win + 6 * dec) if int4 else 0
-    small = sum(m <= int4_matmul.DECODE_MAX_M for m in rows["passes"])
+    small = sum(m <= int4_matmul.DECODE_MAX_M for m in passes)
     formula = (f"{asr.cfg.n_text_layer} layers x (2 x {ticks} windows x 2 launches + 6 x "
                f"({small} passes of <= {int4_matmul.DECODE_MAX_M} rows x 1 + "
-               f"{len(rows['passes']) - small} passes x 2))")
+               f"{len(passes) - small} passes x 2)); the passes are {len(rows['spans'])} "
+               f"prefill spans, {graphs['warmup_steps']} warm-up steps and "
+               f"{graphs['replays']} replays x {loop.k} steps")
     if win != 2 * ticks:
         raise AssertionError(f"an encoded window of <= {int4_matmul.DECODE_MAX_M} rows: "
                              f"{rows['windows']}")
@@ -415,13 +469,13 @@ def phase_full_width(guard: FailOnLog, quantization: str | None = None) -> dict:
         raise AssertionError(f"K2 launched {launches['int4']} times, predicted {predicted} "
                              f"({formula})")
     if int4:  # every K2 path this run took is held against its plain version
-        used = {k2_path(m) for m in rows["windows"] + rows["passes"]}
+        used = {k2_path(m) for m in rows["windows"] + passes}
         held = {k2_path(m) for _, m, k, _ in INT4_SHAPES if k >= asr.cfg.n_text_state}
         if used - held:
             raise AssertionError(f"K2 paths {sorted(used - held)} ran at large-v3 widths but no "
                                  f"row of INT4_SHAPES holds them against the plain version")
         print(f"{label}: K2 paths taken {sorted(used)} (rows of the decoder passes: "
-              f"{sorted(set(rows['passes']))}), each held bit for bit in the K2 phases")
+              f"{sorted(set(passes))}), each held bit for bit in the K2 phases")
     for res in results:
         if not res.tokens or not all(0 <= t < asr.cfg.n_vocab for t in res.tokens):
             raise AssertionError(f"tokens out of range or empty: {res.tokens}")
@@ -446,12 +500,17 @@ def phase_full_width(guard: FailOnLog, quantization: str | None = None) -> dict:
         aux = torch.from_numpy(plan.aux).cuda()
 
         def decode():
-            return D.greedy_decode(asr.model, xa, opts, plan, aux, asr._extra_suppress)
+            return D.greedy_decode(asr.model, xa, opts, plan, aux, asr._extra_suppress,
+                                   loop=loop)
 
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        res = decode()
-        decode_s = time.perf_counter() - t0
+        decode()  # the 16 s window's graph is captured already; this replays it
+        decode_s = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            res = decode()
+            decode_s.append(time.perf_counter() - t0)
+        decode_s = float(np.median(decode_s))
         # device time of the same encode and decode, for the card's busy share
         acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
         busy = {}
@@ -471,9 +530,10 @@ def phase_full_width(guard: FailOnLog, quantization: str | None = None) -> dict:
                   + "; ".join(f"{e.key[:60]} {e.self_device_time_total / 1e3:.2f} ms"
                               for e in top))
     n_tokens = int(res.lengths[0]) - int(res.tokens[0][res.lengths[0] - 1] == asr.cfg.eot)
-    print(f"{label}: offline 16 s transcribe {offline_s:.2f} s (first call), "
-          f"{len(results[0].tokens)} tokens; stream of {ticks - 1} ticks, p50 tick "
-          f"{np.median(tick_ms):.1f} ms; logmel launches {launches['logmel']} = encoded "
+    p50, p95 = np.percentile(tick_ms, [50, 95])
+    print(f"{label}: offline 16 s transcribe {offline_s:.2f} s (first call, graphs captured "
+          f"in it), {len(results[0].tokens)} tokens; stream of {ticks - 1} ticks, tick p50 "
+          f"{p50:.1f} ms p95 {p95:.1f} ms; logmel launches {launches['logmel']} = encoded "
           f"windows; K2 launches {launches['int4']} (predicted {predicted}"
           + (f" = {formula})" if int4 else ")"))
     share = {k: f"{v / wall:.0%}" if k in busy else "not measured"
@@ -482,11 +542,93 @@ def phase_full_width(guard: FailOnLog, quantization: str | None = None) -> dict:
     dev_tok = (f"{busy['decode'] / n_tokens:.2f} ms" if "decode" in busy else "not measured")
     print(f"{label}: encode_ms (16 s bucket, log-mel + encoder, host clock to "
           f"sync, median of 5) {encode_ms:.2f} (card busy {share['encode']}); "
-          f"decode {1e3 * decode_s / n_tokens:.2f} ms per sampled token on the host clock, "
-          f"{dev_tok} of kernels per token, over {n_tokens} "
+          f"decode {1e3 * decode_s / n_tokens:.2f} ms per sampled token on the host clock "
+          f"(median of 3 windows), {dev_tok} of kernels per token, over {n_tokens} "
           f"(prefill included; card busy {share['decode']}); "
           f"max_memory_allocated {peak_gib:.2f} GiB")
+    pr5 = PR5_CALL35[quantization]
+    print(f"{label}: PR 5 call 35 (eager loop) for comparison: tick p50 "
+          f"{pr5['tick_p50_ms']} ms, decode {pr5['host_ms_per_token']} ms per token on the "
+          f"host clock, {pr5['kernel_ms_per_token']} ms of kernels, card busy {pr5['busy']}")
+    print(f"{label}: decode loop as CUDA graphs of K = {loop.k} steps: {graphs['captures']} "
+          f"captures in {graphs['capture_s']:.2f} s, graph pool "
+          f"{loop.stats['graph_bytes'] / 2**20:.1f} MiB, state buffers "
+          f"{graphs['state_bytes'] / 2**20:.1f} MiB, {graphs['replays']} replays, "
+          f"{graphs['warmup_steps']} warm-up steps, {graphs['checks']} host checks; host syncs "
+          f"per window (seen/allowed, * = captured in it): "
+          + " ".join(f"{seen}/{allowed}{'*' if cap else ''}" for seen, allowed, cap in syncs))
+
+    # the stream again, every loop shape it meets captured already
+    warm_ms: list[float] = []
+    captures = loop.stats["captures"]
+    run_stream(asr, stream_audio, guard, warm_ms)
+    p50, p95 = np.percentile(warm_ms, [50, 95])
+    print(f"{label}: the stream again with its graphs captured "
+          f"({loop.stats['captures'] - captures} new captures): tick p50 {p50:.1f} ms p95 "
+          f"{p95:.1f} ms")
+    # a tick's phases: the stream once more, the timer syncing at each boundary
+    asr.phase_timer = PhaseTimer()
+    run_stream(asr, stream_audio, guard)
+    report = asr.phase_timer.report()
+    asr.phase_timer = None
+    n = report["decode"]["count"]
+    print(f"{label}: PhaseTimer split of a tick (mean ms over {n} ticks; sync floor "
+          f"{measure_sync_floor():.3f} ms): "
+          + ", ".join(f"{k} {v['mean_ms']}" for k, v in report.items()))
+    check_graph_equals_uncaptured(asr, label, offline_audio, stream_audio)
     return launches
+
+
+def check_graph_equals_uncaptured(asr, label: str, *clips: np.ndarray) -> None:
+    """The graph path's packed result against the same step function run
+    uncaptured on the card (``DecodeLoop`` at the same K, no capture), bit
+    for bit, for each clip's window and once more with a draft (the first 4
+    sampled tokens forced, the next 8 drafted). On a difference, prints the
+    first divergent token and the top-2 logit margin of the uncaptured path
+    there, and fails."""
+    import torch
+
+    from realtime_whisper_asr_tpu_torch.models.whisper import decode as D
+
+    cfg = asr.cfg
+    opts = asr._make_opts()
+    done = []
+    for audio in clips:
+        with torch.inference_mode():
+            xa = asr._logmel_encode(torch.from_numpy(asr._pad_window(audio)).cuda())
+        plan = D.plan_window(cfg, opts)
+        for drafted in (False, True):
+            if drafted:
+                ids = [int(t) for t in graph_packed[: plan.max_new]]
+                plan = D.plan_window(cfg, opts, None, ids[:4], ids[4:12])
+            aux = torch.from_numpy(plan.aux).cuda()[None]
+            graph_packed, eager_packed = (
+                D._decode_window(asr.model, opts, xa, aux, plan, asr._extra_suppress, None,
+                                 loop, captured=captured).cpu()
+                for loop, captured in ((asr.decode_loop, True),
+                                       (D.DecodeLoop(k=asr.decode_loop.k), False)))
+            what = (f"{label} {xa.shape[1] // 50} s window, p={len(plan.init)}, draft_max="
+                    f"{plan.draft_max}")
+            if torch.equal(graph_packed.view(torch.int32), eager_packed.view(torch.int32)):
+                done.append(what)
+                continue
+            tok_g, tok_e = graph_packed[: plan.max_new], eager_packed[: plan.max_new]
+            diff = (tok_g != tok_e).nonzero()
+            if not len(diff):
+                raise AssertionError(f"{what}: graph and uncaptured tokens equal, the rest of "
+                                     f"the packed result differs by up to "
+                                     f"{float((graph_packed - eager_packed).abs().max()):.3g}")
+            i = int(diff[0])
+            hist = np.concatenate([plan.init, tok_e[:i].numpy().astype(np.int64)])
+            with torch.inference_mode():
+                logits, _ = asr.model.decode_span(torch.from_numpy(hist)[None].cuda(), 0,
+                                                  asr.model.init_cache(xa, text_ctx=448))
+            top2 = torch.topk(logits[0, -1].float(), 2).values
+            raise AssertionError(f"{what}: graph path differs from the uncaptured loop at "
+                                 f"sampled token {i} ({int(tok_g[i])} vs {int(tok_e[i])}), "
+                                 f"top-2 logit margin {float(top2[0] - top2[1]):.4g}")
+    print(f"{label}: graph path bit-equal to the uncaptured loop on the card: "
+          + "; ".join(done))
 
 
 def _bound(nbytes: float, ops: float, peak_ops: float) -> tuple[float, str]:

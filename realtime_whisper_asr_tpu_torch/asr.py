@@ -11,8 +11,9 @@ contract):
 
 Each window (tick) is: one host→device copy of the padded window and the
 decode's aux bundle, from pinned memory → log-mel (the hand-written CUDA
-kernel) → encoder → greedy decode with cross-attention capture → one
-device→host copy of the packed result → segments with DTW word timestamps.
+kernel) → encoder → greedy decode with cross-attention capture (on the card
+its loop replays CUDA graphs, ``decode.DecodeLoop``) → one device→host copy
+of the packed result → segments with DTW word timestamps.
 """
 
 from __future__ import annotations
@@ -32,6 +33,7 @@ from realtime_whisper_asr_tpu_torch.models.whisper.config import WhisperConfig, 
 from realtime_whisper_asr_tpu_torch.models.whisper.model import Whisper, init_params
 from realtime_whisper_asr_tpu_torch.models.whisper.tokenizer import Tokenizer, get_tokenizer
 from realtime_whisper_asr_tpu_torch.ops.logmel import log_mel_spectrogram
+from realtime_whisper_asr_tpu_torch.utils.profiling import sync_device
 
 logger = logging.getLogger(__name__)
 
@@ -140,6 +142,14 @@ class TorchWhisperASR:
         self.word_timestamps = word_timestamps
         self.transcribe_kargs: dict = {}
         self._vad_flag = False  # protocol parity; VAD is the VAC processor's job
+        #: the decode loop of every window: on the card its CUDA graphs, one
+        #: per loop shape, captured at a shape's first window
+        self.decode_loop = D.DecodeLoop()
+        #: optional utils.profiling.PhaseTimer: when set, _transcribe_window
+        #: waits for the card at each phase boundary and laps upload, encode,
+        #: decode, download and host_parse. Diagnostic mode: the waits
+        #: serialize work the host otherwise queues ahead.
+        self.phase_timer = None
         #: one tick (window) = one h2d transfer, one log-mel launch, one encode
         self.counters = {"new_tokens": 0, "ticks": 0, "encoded_frames": 0,
                          "h2d_transfers": 0, "h2d_bytes": 0}
@@ -246,11 +256,21 @@ class TorchWhisperASR:
         if prompt_ids is None:
             prompt_ids = self.tokenizer.encode(init_prompt) if init_prompt else None
         plan = D.plan_window(cfg, opts, prompt_ids, prefix_ids, draft_ids)
+        pt = self.phase_timer
+        if pt is not None:
+            pt.mark()
         audio_dev, aux_dev = self._upload(audio, plan.aux)
+        if pt is not None:
+            sync_device(self.device)
+            pt.lap("upload")
         xa = self._logmel_encode(audio_dev)
+        if pt is not None:
+            sync_device(self.device)
+            pt.lap("encode")
         result = D.greedy_decode(
             self.model, xa, opts, plan, aux_dev,
             extra_suppress=self._extra_suppress, alignment_heads=self.alignment_heads,
+            loop=self.decode_loop, phase_timer=pt,
         )
         n_frames = min(len(audio) // (2 * 160), cfg.n_audio_ctx)
         self.counters["ticks"] += 1
@@ -260,6 +280,8 @@ class TorchWhisperASR:
         ids = result.tokens[0][: result.lengths[0]].tolist()
         if ids and ids[-1] == cfg.eot:
             ids = ids[:-1]
+        if pt is not None:
+            pt.lap("host_parse")
         return TranscriptionResult(segs, tokens=ids)
 
     def _parse_segments(

@@ -11,21 +11,38 @@ planned by ``plan_window``), and the result comes back as the same packed
 buffer — tokens, sum logprob, no-speech probability and the uint8-quantized
 cross-attention capture — in one device→host copy.
 
-Loop control runs on the host: eager PyTorch has no ``while_loop``, so every
-step syncs once to test ``all(finished)``; the decode position is a host int.
+The reference runs the loop as one compiled ``jax.lax.while_loop``. Here
+the loop body is one step over device state (``_step`` on a ``LoopState``:
+the position is a device tensor, and a step past the loop's end is a no-op),
+and ``DecodeLoop`` runs it K steps at a time between two host checks of the
+end: on the card as a CUDA graph of K steps, captured once per loop shape
+and replayed; on the CPU uncaptured, the plain version of the same loop.
+The prefill reads nothing back, so a window costs at most ⌈(max_new − 1)/K⌉
+host syncs plus the copy of its result.
 """
 
 from __future__ import annotations
 
+import collections
 import dataclasses
 import functools
-from typing import Optional
+import time
+from typing import Callable, Optional
 
 import numpy as np
 import torch
 
 from realtime_whisper_asr_tpu_torch.models.whisper.config import WhisperConfig
-from realtime_whisper_asr_tpu_torch.models.whisper.model import Whisper
+from realtime_whisper_asr_tpu_torch.models.whisper.model import DecoderCache, Whisper
+from realtime_whisper_asr_tpu_torch.ops import int4_matmul
+from realtime_whisper_asr_tpu_torch.utils.profiling import sync_device
+
+#: decode steps in one CUDA graph, and between two host checks of the loop's
+#: end. A check idles the card ~0.1 ms, while the steps of the last replay
+#: after EOT, ~(K - 1)/2 of ~5 ms each, change nothing but run (large-v3 on an
+#: H100, tools/decode_k.py): 2 stays within half a step of K = 1's time
+#: with half its checks
+STEPS_PER_GRAPH = 2
 
 
 @dataclasses.dataclass(frozen=True)
@@ -236,31 +253,118 @@ def _select_next(cfg, opts, logits, tokens, pos, last_ts, n_prefix, p, sup_mask)
     return nxt, lp
 
 
-def _advance(cfg, tokens, pos: int, total, finished, sum_lp, last_ts, nxt, lp):
-    """Write the token at ``pos``; rows at their cap freeze like EOT'd rows."""
-    done = finished | (pos >= total)
+@dataclasses.dataclass
+class LoopState:
+    """The device state of one window's decode loop: every tensor the step
+    reads or writes, each updated in place (a captured loop replays on these
+    very buffers). Rows share one position."""
+
+    cache: DecoderCache
+    tokens: torch.Tensor  # (B, p + max_new) long: initial tokens, draft, then sampled
+    xattn: Optional[torch.Tensor]  # (B, max_new, audio_ctx) f32 capture rows, or None
+    finished: torch.Tensor  # (B,) bool
+    sum_lp: torch.Tensor  # (B,) f32 over sampled tokens
+    last_ts: torch.Tensor  # (B,) long: the last timestamp token so far, or -1
+    pos: torch.Tensor  # () long: the position the next step writes
+    total: torch.Tensor  # (B,) long: each row's exact cap, ≤ p + max_new
+    max_total: torch.Tensor  # () long: the loop's end
+    n_prefix: torch.Tensor  # (B,) long
+
+
+@dataclasses.dataclass(frozen=True)
+class LoopKey:
+    """What a captured loop bakes in: the model (and so its tier and dtype),
+    the window bucket (audio_ctx), the prompt length p, the loop bound
+    max_new, the self cache length, the draft slots, batch rows, and what
+    the step reads from outside its state (the selection options, the
+    suppressed ids, the alignment heads when capturing)."""
+
+    model_id: int
+    audio_ctx: int
+    p: int
+    max_new: int
+    cache_len: int
+    draft_max: int
+    batch: int
+    opts: DecodeOptions
+    extra_suppress: tuple[int, ...]
+    heads_key: Optional[bytes]
+
+
+def _new_state(model: Whisper, key: LoopKey, dtype, device) -> LoopState:
+    b = key.batch
+
+    def zeros(*shape, dtype=torch.long):
+        return torch.zeros(shape, dtype=dtype, device=device)
+
+    return LoopState(
+        cache=model.empty_cache(b, key.audio_ctx, key.cache_len, dtype, device),
+        tokens=zeros(b, key.p + key.max_new),
+        xattn=(zeros(b, key.max_new, key.audio_ctx, dtype=torch.float32)
+               if key.opts.word_timestamps else None),
+        finished=zeros(b, dtype=torch.bool), sum_lp=zeros(b, dtype=torch.float32),
+        last_ts=zeros(b), pos=zeros(), total=zeros(b), max_total=zeros(), n_prefix=zeros(b),
+    )
+
+
+def _keep(go: torch.Tensor, new: torch.Tensor, buf: torch.Tensor, dim: int,
+          index: torch.Tensor) -> None:
+    """buf's slice at ``index`` along ``dim`` becomes ``new`` where ``go``,
+    and keeps its value elsewhere (a masked write with no host branch)."""
+    buf.index_copy_(dim, index, torch.where(go, new, buf.index_select(dim, index)))
+
+
+def _advance(cfg, st: LoopState, at: torch.Tensor, go: torch.Tensor, nxt, lp) -> None:
+    """Write the token at position ``at`` and move ``pos`` on, where ``go``;
+    rows at their cap freeze like EOT'd rows (they write EOT)."""
+    done = st.finished | (at >= st.total)
     nxt = torch.where(done, cfg.eot, nxt)
-    sum_lp = sum_lp + torch.where(done, 0.0, lp)
-    last_ts = torch.where((nxt >= cfg.timestamp_begin) & ~done, nxt, last_ts)
-    tokens[:, pos] = nxt
-    return finished | (nxt == cfg.eot), sum_lp, last_ts
+    _keep(go, nxt[:, None], st.tokens, 1, at.view(1))
+    st.sum_lp.copy_(torch.where(go, st.sum_lp + torch.where(done, 0.0, lp), st.sum_lp))
+    st.last_ts.copy_(torch.where(go & (nxt >= cfg.timestamp_begin) & ~done, nxt, st.last_ts))
+    st.finished.copy_(st.finished | (go & (nxt == cfg.eot)))
+    st.pos.add_(go.long())
 
 
-@torch.inference_mode()
-def _greedy_loop(
-    model: Whisper,
-    opts: DecodeOptions,
-    xa: torch.Tensor,  # (B, audio_ctx, d)
-    aux: torch.Tensor,  # (B, AUX_LEN) f32 bundles (see pack_aux), one per row
-    sup_mask: torch.Tensor,  # (n_vocab,) additive
-    alignment_mask: torch.Tensor,  # (L, H)
-    prompt_len: int,
-    capture_xattn: bool,
-    max_new: int,
-    cache_len: int,
-    draft_max: int = 0,
-) -> torch.Tensor:
-    """The decode of one window, returning the packed result (flat f32).
+def _step(model: Whisper, opts: DecodeOptions, st: LoopState, sup_mask: torch.Tensor,
+          amask: Optional[torch.Tensor], p: int) -> None:
+    """One step of the loop, in place on ``st`` and on device tensors only
+    (no host value changes from step to step: this is what a CUDA graph
+    captures): decode the token before ``pos``, select the next under the
+    logit rules, write it and its capture row.
+
+    A step taken after the loop's end (every row finished, or ``pos`` at the
+    largest cap: the reference's ``while_loop`` condition) is a no-op on
+    every buffer: its indices are clamped into range and each write keeps
+    the old value, so the K steps between two host checks may overrun the
+    end harmlessly."""
+    cfg = model.cfg
+    t = st.tokens.shape[1]
+    go = ~st.finished.all() & (st.pos < st.max_total)
+    at = st.pos.clamp(1, t - 1)  # equals pos wherever go
+    prev = (at - 1).view(1)
+    cache = st.cache
+    old = [buf.index_select(3, prev) for buf in (cache.self_k, cache.self_v)]
+    logits, xw = model.decode_step(st.tokens.index_select(1, prev)[:, 0], at - 1, cache,
+                                   alignment_mask=amask)
+    for buf, kept in zip((cache.self_k, cache.self_v), old):  # undo the write where not go
+        buf.index_copy_(3, prev, torch.where(go, buf.index_select(3, prev), kept))
+    nxt, lp = _select_next(cfg, opts, logits, st.tokens, at.expand(st.tokens.shape[0]),
+                           st.last_ts, st.n_prefix, p, sup_mask)
+    if st.xattn is not None:
+        _keep(go, xw[:, None], st.xattn, 1, (at - p).clamp(0, st.xattn.shape[1] - 1).view(1))
+    _advance(cfg, st, at, go, nxt, lp)
+
+
+def _prefill(model: Whisper, opts: DecodeOptions, xa: torch.Tensor, aux: torch.Tensor,
+             sup_mask: torch.Tensor, amask: Optional[torch.Tensor], st: LoopState,
+             p: int, draft_max: int) -> tuple[Optional[torch.Tensor], torch.Tensor]:
+    """The window's prefill, eager, into the loop state ``st``: cross K/V
+    and a zeroed self cache, one ``decode_span`` over the initial tokens and
+    the draft, the draft's verify, and the first sampled token. Reads
+    nothing back to the host: the accepted draft length stays on the device
+    and seeds ``pos``. Returns (prefill capture rows or None, no-speech
+    probability).
 
     Self-speculative decode (draft_max > 0): the prefill span is
     init || draft, where draft is the previous tick's hypothesis tail beyond
@@ -270,7 +374,8 @@ def _greedy_loop(
     wholesale and the loop starts past it. Lossless: the verifier IS the
     loop's own selection function."""
     cfg = model.cfg
-    b, p, dev = xa.shape[0], prompt_len, xa.device
+    b, dev = xa.shape[0], xa.device
+    max_new = st.tokens.shape[1] - p
     aux = aux.long()  # every slot read here holds an integer
     initial_tokens = aux[:, :p]
     n_prefix = aux[:, AUX_TOK]
@@ -284,24 +389,21 @@ def _greedy_loop(
     draft_tok = torch.where(torch.arange(draft_max, device=dev)[None, :] < n_draft[:, None],
                             draft_tok, cfg.eot)
     ts0 = cfg.timestamp_begin
-    audio_ctx = xa.shape[1]
-    select = functools.partial(_select_next, cfg, opts, p=p, sup_mask=sup_mask)
 
-    cache = model.init_cache(xa, text_ctx=cache_len)
-    amask = alignment_mask if capture_xattn else None
+    model.fill_cache(xa, st.cache)
     span = torch.cat([initial_tokens, draft_tok], dim=1)
-    pre_logits, pre_xattn = model.decode_span(span, 0, cache, alignment_mask=amask)
+    pre_logits, pre_xattn = model.decode_span(span, 0, st.cache, alignment_mask=amask)
     sot_logits = pre_logits[torch.arange(b, device=dev), sot_index]
     no_speech_prob = torch.softmax(sot_logits, dim=-1)[:, cfg.no_speech]
 
-    tokens = torch.cat([initial_tokens, draft_tok,
-                        torch.full((b, max_new - draft_max), cfg.eot, device=dev)], dim=1)
-    xattn = torch.zeros((b, max_new if capture_xattn else 1, audio_ctx), device=dev)
-    if capture_xattn and draft_max:
+    st.tokens[:, : p + draft_max] = span
+    st.tokens[:, p + draft_max :] = cfg.eot
+    if st.xattn is not None:
+        st.xattn.zero_()
         # accepted draft tokens' capture rows come from the prefill span;
         # slots past acceptance are overwritten as the loop re-decodes them
         slots = min(draft_max, max_new - 1)
-        xattn[:, 1 : slots + 1] = pre_xattn[:, p : p + slots]
+        st.xattn[:, 1 : slots + 1] = pre_xattn[:, p : p + slots]
 
     # verify + seed from the prefill span's logits: row p-1+i of pre_logits
     # predicts position p+i, so one batched pass of the selection rules over
@@ -315,9 +417,9 @@ def _greedy_loop(
     k = draft_max + 1
     positions = p + torch.arange(k, device=dev)
     lg = pre_logits[:, p - 1 : p + draft_max].transpose(0, 1)  # (k, B, V)
-    choices, lps = select(lg.reshape(k * b, -1), tokens.repeat(k, 1),
-                          positions.repeat_interleave(b), lts_all.reshape(-1),
-                          n_prefix.repeat(k))
+    choices, lps = _select_next(cfg, opts, lg.reshape(k * b, -1), st.tokens.repeat(k, 1),
+                                positions.repeat_interleave(b), lts_all.reshape(-1),
+                                n_prefix.repeat(k), p, sup_mask)
     choices, lps = choices.view(k, b), lps.view(k, b)
 
     if draft_max:
@@ -327,36 +429,182 @@ def _greedy_loop(
         acc_row = torch.cumprod(match.long(), dim=0).sum(dim=0)  # (B,)
         # one shared position: accept the min across rows, keep a slot free
         # for the bonus token
-        n_acc_t = torch.clamp(acc_row.min(), max=max_new - 1)
+        n_acc = torch.clamp(acc_row.min(), max=max_new - 1)
+        st.sum_lp.copy_(torch.where(iidx < n_acc, lps[:draft_max], 0.0).sum(dim=0))
     else:
-        n_acc_t = torch.zeros((), dtype=torch.long, device=dev)
-    n_acc, max_total = torch.stack([n_acc_t, total.max()]).tolist()  # one host sync
-    sum_lp = (lps[:n_acc].sum(dim=0) if n_acc
-              else torch.zeros(b, device=dev))
-    finished, sum_lp, last_ts = _advance(
-        cfg, tokens, p + n_acc, total, torch.zeros(b, dtype=torch.bool, device=dev),
-        sum_lp, lts_all[n_acc], choices[n_acc], lps[n_acc])
+        n_acc = torch.zeros((), dtype=torch.long, device=dev)
+        st.sum_lp.zero_()
+    acc = n_acc.view(1)
+    st.total.copy_(total)
+    st.max_total.copy_(total.max())
+    st.n_prefix.copy_(n_prefix)
+    st.finished.zero_()
+    st.last_ts.copy_(lts_all.index_select(0, acc)[0])
+    at = p + n_acc
+    st.pos.copy_(at)
+    _advance(cfg, st, at, torch.ones((), dtype=torch.bool, device=dev),
+             choices.index_select(0, acc)[0], lps.index_select(0, acc)[0])
+    return pre_xattn, no_speech_prob
 
-    pos = p + 1 + n_acc
-    while pos < max_total and not bool(finished.all()):  # one host sync per step
-        logits, xw = model.decode_step(tokens[:, pos - 1], pos - 1, cache, alignment_mask=amask)
-        nxt, lp = select(logits, tokens, torch.full((b,), pos, device=dev), last_ts, n_prefix)
-        if capture_xattn:
-            xattn[:, pos - p] = xw
-        finished, sum_lp, last_ts = _advance(
-            cfg, tokens, pos, total, finished, sum_lp, last_ts, nxt, lp)
-        pos += 1
 
-    # ONE flat f32 buffer for the host: token ids (< 2^24, exact in f32),
-    # sum logprob, no-speech probability and the capture — softmax weights in
-    # [0, 1] quantized to uint8 (x255), four per f32 word: sampled rows, then
-    # the init prefill block (draft span rows were folded into the slots)
-    parts = [tokens[:, p:].float(), sum_lp[:, None], no_speech_prob[:, None]]
-    if capture_xattn:
-        xa_all = torch.cat([xattn.reshape(b, -1), pre_xattn[:, :p].reshape(b, -1)], dim=1)
+def _pack(st: LoopState, pre_xattn: Optional[torch.Tensor], no_speech_prob: torch.Tensor,
+          p: int) -> torch.Tensor:
+    """ONE flat f32 buffer for the host: token ids (< 2^24, exact in f32),
+    sum logprob, no-speech probability and the capture — softmax weights in
+    [0, 1] quantized to uint8 (x255), four per f32 word: sampled rows, then
+    the init prefill block (draft span rows were folded into the slots)."""
+    b = st.tokens.shape[0]
+    parts = [st.tokens[:, p:].float(), st.sum_lp[:, None], no_speech_prob[:, None]]
+    if st.xattn is not None:
+        xa_all = torch.cat([st.xattn.reshape(b, -1), pre_xattn[:, :p].reshape(b, -1)], dim=1)
         q = torch.clamp(torch.round(xa_all * 255.0), 0, 255).to(torch.uint8)
         parts.append(q.view(torch.float32))
     return torch.cat(parts, dim=1).reshape(-1)
+
+
+@dataclasses.dataclass
+class _Loop:
+    """One loop shape's state and how K steps run on it."""
+
+    state: LoopState
+    run_k: Callable[[], None]
+    reads: tuple  # what the step reads besides its state, kept alive with a graph
+
+
+def _state_bytes(st: LoopState) -> int:
+    tensors = [getattr(st.cache, f.name) for f in dataclasses.fields(st.cache)]
+    tensors += [getattr(st, f.name) for f in dataclasses.fields(st)][1:]
+    return sum(t.numel() * t.element_size() for t in tensors if t is not None)
+
+
+class DecodeLoop:
+    """Runs windows' decode loops: the step (``_step``) K times between two
+    host checks of the loop's end, so one window's loop costs at most
+    ⌈(max_new − 1)/K⌉ host syncs (the prefill none).
+
+    On the card the K steps are one CUDA graph, captured once per loop shape
+    (``LoopKey``) on that shape's own state buffers, after one warm-up step
+    on a side stream, and replayed; the ``max_graphs`` most recently used
+    shapes are kept, their scratch memory in one shared pool. On the CPU
+    the same step runs uncaptured: the plain version of the captured loop.
+    Pass one ``DecodeLoop`` to every window of a model: a new one captures
+    anew.
+
+    ``stats``: captures, their seconds, the graph pool's bytes after the
+    last capture, the state bytes the captures allocated, replays, warm-up
+    steps, uncaptured steps and host checks, since construction."""
+
+    def __init__(self, k: int = STEPS_PER_GRAPH, max_graphs: int = 8):
+        if k < 1 or max_graphs < 1:
+            raise ValueError(f"DecodeLoop takes k >= 1 and max_graphs >= 1, got {k}, "
+                             f"{max_graphs}")
+        self.k, self.max_graphs = k, max_graphs
+        self._graphs: collections.OrderedDict[LoopKey, _Loop] = collections.OrderedDict()
+        # one pool and one capture stream for all graphs: the allocator reuses
+        # a block only on the stream that freed it, so a capture on a stream of
+        # its own could not reuse the scratch the earlier captures freed
+        self._pool = self._stream = None
+        self.stats = {"captures": 0, "capture_s": 0.0, "graph_bytes": 0, "state_bytes": 0,
+                      "replays": 0, "warmup_steps": 0, "eager_steps": 0, "checks": 0}
+
+    def loop(self, model: Whisper, key: LoopKey, dtype, device, sup_mask: torch.Tensor,
+             amask: Optional[torch.Tensor], captured: bool) -> _Loop:
+        """The loop of ``key``: on the card (``captured``) its graph, captured
+        at first use; otherwise new state and K uncaptured steps."""
+        if not captured:
+            st = _new_state(model, key, dtype, device)
+            step = functools.partial(_step, model, key.opts, st, sup_mask, amask, key.p)
+
+            def run_k():
+                for _ in range(self.k):
+                    step()
+                self.stats["eager_steps"] += self.k
+
+            return _Loop(st, run_k, ())
+        hit = self._graphs.get(key)
+        if hit is not None:
+            self._graphs.move_to_end(key)
+            return hit
+        loop = self._graphs[key] = self._capture(model, key, dtype, device, sup_mask, amask)
+        while len(self._graphs) > self.max_graphs:
+            self._graphs.popitem(last=False)
+        return loop
+
+    def _capture(self, model, key, dtype, device, sup_mask, amask) -> _Loop:
+        """K steps captured in one CUDA graph on new state buffers. A capture
+        that fails raises; nothing falls back to the uncaptured loop."""
+        t0 = time.perf_counter()
+        st = _new_state(model, key, dtype, device)
+        step = functools.partial(_step, model, key.opts, st, sup_mask, amask, key.p)
+        st.finished.fill_(True)  # the warm-up step is then a no-op on every buffer
+        if self._pool is None:
+            self._pool = torch.cuda.graph_pool_handle()
+            self._stream = torch.cuda.Stream(device)
+        side = self._stream
+        side.wait_stream(torch.cuda.current_stream(device))
+        with torch.cuda.stream(side):  # first-use allocations and library handles
+            step()
+        torch.cuda.current_stream(device).wait_stream(side)
+        self.stats["warmup_steps"] += 1
+        graph = torch.cuda.CUDAGraph()
+        launched = int4_matmul.int4_launches
+        with torch.cuda.graph(graph, pool=self._pool, stream=side):
+            for _ in range(self.k):
+                step()
+        # a capture records K2's launches; each replay makes them
+        per_replay = int4_matmul.int4_launches - launched
+        int4_matmul.int4_launches = launched
+
+        def run_k():
+            graph.replay()
+            int4_matmul.int4_launches += per_replay
+            self.stats["replays"] += 1
+
+        self.stats["captures"] += 1
+        self.stats["capture_s"] += time.perf_counter() - t0
+        self.stats["graph_bytes"] = sum(  # the shared pool's segments, now
+            seg["total_size"] for seg in torch.cuda.memory_snapshot()
+            if tuple(seg["segment_pool_id"]) == tuple(self._pool))
+        self.stats["state_bytes"] += _state_bytes(st)
+        return _Loop(st, run_k, (model, sup_mask, amask))
+
+    def run(self, loop: _Loop, steps_max: int) -> None:
+        """At most ``steps_max`` steps (the host's bound from the plan), K at
+        a time, with one host check of the loop's end before each K: the only
+        device reads of the loop."""
+        st = loop.state
+        while steps_max > 0:
+            self.stats["checks"] += 1
+            if bool(st.finished.all() | (st.pos >= st.max_total)):  # one sync per K steps
+                return
+            loop.run_k()
+            steps_max -= self.k
+
+
+@torch.inference_mode()
+def _decode_window(model: Whisper, opts: DecodeOptions, xa: torch.Tensor, aux: torch.Tensor,
+                   plan: "WindowPlan", extra_suppress: tuple[int, ...],
+                   alignment_heads: Optional[np.ndarray], loop: DecodeLoop,
+                   captured: bool) -> torch.Tensor:
+    """The decode of one planned window (prefill, then the loop: captured on
+    the card, uncaptured where ``captured`` is false), returning the packed
+    result (flat f32) on xa's device. ``aux`` (B, AUX_LEN) on xa's device."""
+    cfg = model.cfg
+    p = int(plan.init.shape[0])
+    heads_key = (None if alignment_heads is None
+                 else np.ascontiguousarray(alignment_heads, np.float32).tobytes())
+    sup_mask = _sup_mask_dev(cfg, tuple(extra_suppress), xa.device)
+    amask = _amask_dev(cfg, heads_key, xa.device) if opts.word_timestamps else None
+    key = LoopKey(id(model), int(xa.shape[1]), p, plan.max_new,
+                  min(cfg.n_text_ctx, _round_up(p + plan.max_new, 128)), plan.draft_max,
+                  int(xa.shape[0]), opts, tuple(extra_suppress), heads_key)
+    run = loop.loop(model, key, xa.dtype, xa.device, sup_mask, amask, captured)
+    pre_xattn, no_speech_prob = _prefill(model, opts, xa, aux, sup_mask, amask, run.state, p,
+                                         plan.draft_max)
+    # the host's bound on the loop's steps: the first token came from the
+    # prefill, and no row goes past its cap (the plan's, ≤ max_new)
+    loop.run(run, min(int(plan.aux[AUX_TOK + 4]), plan.max_new) - 1)
+    return _pack(run.state, pre_xattn, no_speech_prob, p)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -403,28 +651,32 @@ def greedy_decode(
     aux: torch.Tensor,
     extra_suppress: tuple[int, ...] = (),
     alignment_heads: Optional[np.ndarray] = None,
+    loop: Optional[DecodeLoop] = None,
+    phase_timer=None,
 ) -> DecodeResult:
-    """Run the decode loop of one planned window and unpack its result with
-    one device→host copy. ``aux`` is ``plan.aux`` on xa's device (the ASR
-    uploads it with the audio). Returns tokens = prefix + sampled (xattn rows
-    aligned), so callers parse one transcript regardless of how much was
-    forced."""
+    """Run the decode of one planned window and unpack its result with one
+    device→host copy. ``aux`` is ``plan.aux`` on xa's device (the ASR
+    uploads it with the audio). On the card the loop runs as ``loop``'s CUDA
+    graphs (a new ``DecodeLoop`` when None: pass the same one to every window
+    of a model to reuse its graphs), on the CPU uncaptured. Returns tokens =
+    prefix + sampled (xattn rows aligned), so callers parse one transcript
+    regardless of how much was forced.
+
+    ``phase_timer`` (``utils.profiling.PhaseTimer``), when given, laps
+    ``decode`` once the card has finished and ``download`` after the copy."""
     cfg = model.cfg
     b, p = xa.shape[0], int(plan.init.shape[0])
-    heads_key = (None if alignment_heads is None
-                 else np.ascontiguousarray(alignment_heads, np.float32).tobytes())
-    packed = _greedy_loop(
-        model, opts, xa, aux.reshape(-1, AUX_LEN).expand(b, AUX_LEN),
-        _sup_mask_dev(cfg, tuple(extra_suppress), xa.device),
-        _amask_dev(cfg, heads_key, xa.device),
-        prompt_len=p, capture_xattn=opts.word_timestamps, max_new=plan.max_new,
-        cache_len=min(cfg.n_text_ctx, _round_up(p + plan.max_new, 128)),
-        draft_max=plan.draft_max,
-    )
-    rows = _unpack_packed_rows(
-        packed.cpu().numpy(), cfg, b, p, plan.max_new, opts.word_timestamps,
-        int(xa.shape[1]), [plan.prefix] * b,
-    )
+    packed = _decode_window(model, opts, xa, aux.reshape(-1, AUX_LEN).expand(b, AUX_LEN), plan,
+                            tuple(extra_suppress), alignment_heads, loop or DecodeLoop(),
+                            captured=xa.device.type == "cuda")
+    if phase_timer is not None:
+        sync_device(xa.device)
+        phase_timer.lap("decode")
+    flat = packed.cpu().numpy()
+    if phase_timer is not None:
+        phase_timer.lap("download")
+    rows = _unpack_packed_rows(flat, cfg, b, p, plan.max_new, opts.word_timestamps,
+                               int(xa.shape[1]), [plan.prefix] * b)
     lengths = np.array([r[1] for r in rows], np.int64)
     sum_lp = np.array([r[2] for r in rows], np.float64)
     return DecodeResult(

@@ -359,30 +359,46 @@ class Whisper(nn.Module):
 
     # ------------------------------------------------------------- decoder
 
-    def precompute_cross_kv(self, xa: torch.Tensor):
-        """xa (B, audio_ctx, d) -> cross K/V, each (L, B, H, audio_ctx, Dh).
-        K/V come from the raw encoder output (cross_ln only normalizes the
+    def precompute_cross_kv(self, xa: torch.Tensor, out=None):
+        """xa (B, audio_ctx, d) -> cross K/V, each (L, B, H, audio_ctx, Dh),
+        written into ``out`` (a (K, V) pair of such buffers) when given. K/V
+        come from the raw encoder output (cross_ln only normalizes the
         query)."""
-        h = self.cfg.n_text_head
-        ks, vs = [], []
-        for blk in self.decoder.blocks:
-            ks.append(_split_heads(blk.cross.key(xa), h))
-            vs.append(_split_heads(blk.cross.value(xa), h))
-        return torch.stack(ks), torch.stack(vs)
+        cfg = self.cfg
+        shape = (cfg.n_text_layer, xa.shape[0], cfg.n_text_head, xa.shape[1],
+                 cfg.n_text_state // cfg.n_text_head)
+        ck, cv = out if out is not None else (
+            torch.empty(shape, dtype=xa.dtype, device=xa.device) for _ in range(2))
+        for layer, blk in enumerate(self.decoder.blocks):
+            ck[layer] = _split_heads(blk.cross.key(xa), cfg.n_text_head)
+            cv[layer] = _split_heads(blk.cross.value(xa), cfg.n_text_head)
+        return ck, cv
+
+    def empty_cache(self, batch: int, audio_ctx: int, text_ctx: int, dtype,
+                    device) -> DecoderCache:
+        """Cache buffers, uninitialised (``fill_cache`` fills them)."""
+        cfg = self.cfg
+        dh = cfg.n_text_state // cfg.n_text_head
+        self_shape = (cfg.n_text_layer, batch, cfg.n_text_head, text_ctx, dh)
+        cross_shape = (cfg.n_text_layer, batch, cfg.n_text_head, audio_ctx, dh)
+        return DecoderCache(*(torch.empty(shape, dtype=dtype, device=device)
+                              for shape in (self_shape, self_shape, cross_shape, cross_shape)))
+
+    def fill_cache(self, xa: torch.Tensor, cache: DecoderCache) -> None:
+        """One window's cache, in place: its cross K/V written into the
+        buffers, the self K/V zeroed (buffers whose addresses a captured
+        decode loop keeps)."""
+        self.precompute_cross_kv(xa, out=(cache.cross_k, cache.cross_v))
+        cache.self_k.zero_()
+        cache.self_v.zero_()
 
     def init_cache(self, xa: torch.Tensor, text_ctx: Optional[int] = None) -> DecoderCache:
-        """``text_ctx`` trims the self-attention cache below n_text_ctx when
-        the caller knows its decode budget."""
-        cfg = self.cfg
-        tc = text_ctx or cfg.n_text_ctx
-        ck, cv = self.precompute_cross_kv(xa)
-        shape = (cfg.n_text_layer, xa.shape[0], cfg.n_text_head, tc,
-                 cfg.n_text_state // cfg.n_text_head)
-        return DecoderCache(
-            self_k=torch.zeros(shape, dtype=xa.dtype, device=xa.device),
-            self_v=torch.zeros(shape, dtype=xa.dtype, device=xa.device),
-            cross_k=ck, cross_v=cv,
-        )
+        """A new cache for xa. ``text_ctx`` trims the self-attention cache
+        below n_text_ctx when the caller knows its decode budget."""
+        cache = self.empty_cache(xa.shape[0], xa.shape[1], text_ctx or self.cfg.n_text_ctx,
+                                 xa.dtype, xa.device)
+        self.fill_cache(xa, cache)
+        return cache
 
     def logits(self, x: torch.Tensor) -> torch.Tensor:
         """Tied output head, f32 logits (x @ tok_emb.T with f32 products and
@@ -393,18 +409,17 @@ class Whisper(nn.Module):
             return emb.logits(x)
         return torch.matmul(x.float(), emb.float().t())
 
-    def _decoder_layers(self, x, pos0: int, mask, cache: DecoderCache,
+    def _decoder_layers(self, x, pos: torch.Tensor, mask, cache: DecoderCache,
                         alignment_mask: Optional[torch.Tensor]):
-        """Run the decoder blocks over x (B, S, d) at positions pos0..pos0+S-1,
-        writing their K/V into the self cache in place. Returns (hidden,
-        xattn (B, S, audio_ctx) or None)."""
-        s = x.shape[1]
+        """Run the decoder blocks over x (B, S, d) at the positions ``pos``
+        (S,) long, on the cache's device, writing their K/V into the self
+        cache in place. Returns (hidden, xattn (B, S, audio_ctx) or None)."""
         capture = alignment_mask is not None
         xattn = None
         for layer, blk in enumerate(self.decoder.blocks):
             q, k, v = blk.attn.project(blk.attn_ln(x))  # each (B,H,S,Dh)
-            cache.self_k[layer, :, :, pos0 : pos0 + s] = k
-            cache.self_v[layer, :, :, pos0 : pos0 + s] = v
+            cache.self_k[layer].index_copy_(2, pos, k)
+            cache.self_v[layer].index_copy_(2, pos, v)
             o, _ = _attend(q, cache.self_k[layer], cache.self_v[layer], mask)
             x = x + blk.attn.out(_merge_heads(o))
             q = _split_heads(blk.cross.query(blk.cross_ln(x)), blk.cross.n_head)
@@ -429,18 +444,22 @@ class Whisper(nn.Module):
         # query q may attend to cache key j iff j <= pos0 + q
         j = torch.arange(cache.self_k.shape[3], device=tokens.device)
         mask = torch.where(j[None, :] > pos[:, None], _NEG, 0.0)[None, None]
-        x, xattn = self._decoder_layers(x, pos0, mask, cache, alignment_mask)
+        x, xattn = self._decoder_layers(x, pos, mask, cache, alignment_mask)
         return self.logits(x), xattn
 
-    def decode_step(self, tokens: torch.Tensor, pos: int, cache: DecoderCache,
+    def decode_step(self, tokens: torch.Tensor, pos: torch.Tensor, cache: DecoderCache,
                     alignment_mask: Optional[torch.Tensor] = None):
-        """One incremental step: tokens (B,) at position ``pos`` -> (logits
-        (B, V) f32, xattn (B, audio_ctx) f32 or None)."""
+        """One incremental step: tokens (B,) at position ``pos``, a 0-d long
+        tensor on the model's device (no host value, so a CUDA graph can
+        capture the step) -> (logits (B, V) f32, xattn (B, audio_ctx) f32 or
+        None)."""
         dec = self.decoder
-        x = (self._emb_rows(tokens) + dec.pos_emb[pos])[:, None, :].to(cache.self_k.dtype)
+        pos = pos.view(1)
+        x = (self._emb_rows(tokens) + dec.pos_emb.index_select(0, pos))[:, None, :]
         j = torch.arange(cache.self_k.shape[3], device=tokens.device)
         mask = torch.where(j > pos, _NEG, 0.0)
-        x, xattn = self._decoder_layers(x, pos, mask, cache, alignment_mask)
+        x, xattn = self._decoder_layers(x.to(cache.self_k.dtype), pos, mask, cache,
+                                        alignment_mask)
         return self.logits(x[:, 0]), (None if xattn is None else xattn[:, 0])
 
 

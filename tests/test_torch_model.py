@@ -132,7 +132,7 @@ def test_decode_step_matches_jax(pair):
     jl, _, jx = W.decode_step(jparams, cfg, jnp.asarray(tok), jnp.int32(16), jcache,
                               alignment_mask=jnp.asarray(amask))
     with torch.inference_mode():
-        ol, ox = model.decode_step(torch.from_numpy(tok).long(), 16, cache,
+        ol, ox = model.decode_step(torch.from_numpy(tok).long(), torch.tensor(16), cache,
                                    alignment_mask=torch.from_numpy(amask))
     _close(ol, jl)
     _close(ox, jx)
