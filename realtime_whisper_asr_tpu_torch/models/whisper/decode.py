@@ -43,6 +43,8 @@ from realtime_whisper_asr_tpu_torch.utils.profiling import sync_device
 #: H100, tools/decode_k.py): 2 stays within half a step of K = 1's time
 #: with half its checks
 STEPS_PER_GRAPH = 2
+#: loop shapes whose graphs a DecodeLoop keeps (the least recently used goes)
+MAX_GRAPHS = 8
 
 
 @dataclasses.dataclass(frozen=True)
@@ -484,7 +486,7 @@ class DecodeLoop:
 
     On the card the K steps are one CUDA graph, captured once per loop shape
     (``LoopKey``) on that shape's own state buffers, after one warm-up step
-    on a side stream, and replayed; the ``max_graphs`` most recently used
+    on a side stream, and replayed; the ``MAX_GRAPHS`` most recently used
     shapes are kept, their scratch memory in one shared pool. On the CPU
     the same step runs uncaptured: the plain version of the captured loop.
     Pass one ``DecodeLoop`` to every window of a model: a new one captures
@@ -494,11 +496,10 @@ class DecodeLoop:
     last capture, the state bytes the captures allocated, replays, warm-up
     steps, uncaptured steps and host checks, since construction."""
 
-    def __init__(self, k: int = STEPS_PER_GRAPH, max_graphs: int = 8):
-        if k < 1 or max_graphs < 1:
-            raise ValueError(f"DecodeLoop takes k >= 1 and max_graphs >= 1, got {k}, "
-                             f"{max_graphs}")
-        self.k, self.max_graphs = k, max_graphs
+    def __init__(self, k: int = STEPS_PER_GRAPH):
+        if k < 1:
+            raise ValueError(f"DecodeLoop takes k >= 1, got {k}")
+        self.k = k
         self._graphs: collections.OrderedDict[LoopKey, _Loop] = collections.OrderedDict()
         # one pool and one capture stream for all graphs: the allocator reuses
         # a block only on the stream that freed it, so a capture on a stream of
@@ -526,7 +527,7 @@ class DecodeLoop:
             self._graphs.move_to_end(key)
             return hit
         loop = self._graphs[key] = self._capture(model, key, dtype, device, sup_mask, amask)
-        while len(self._graphs) > self.max_graphs:
+        while len(self._graphs) > MAX_GRAPHS:
             self._graphs.popitem(last=False)
         return loop
 

@@ -56,7 +56,7 @@ def measure(quantization) -> dict:
         xa = asr._logmel_encode(torch.from_numpy(asr._pad_window(audio)).cuda())
     opts = asr._make_opts()
     plan = D.plan_window(asr.cfg, opts)
-    loops = {k: D.DecodeLoop(k=k, max_graphs=1) for k in KS}
+    loops = {k: D.DecodeLoop(k=k) for k in KS}
     auxes = {}
     for n in LOOP_STEPS:
         aux = plan.aux.copy()
