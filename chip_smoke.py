@@ -20,7 +20,8 @@ Phases, each failing the run with a non-zero exit:
      syncs of each window's decode counted by torch's sync debug mode
      (at most 1 + ceil((max_new - 1) / K)); tick p50/p95, decode ms per
      token, the card's busy share, a PhaseTimer split of a tick and the
-     graphs' captures, capture seconds and memory, beside PR 5's figures;
+     graphs' captures, capture seconds and memory, beside the eager loop's
+     figures;
      then the graph path's packed result against the same step run
      uncaptured on the card, bit for bit, at the 16 s and 8 s windows, each
      with and without a draft;
@@ -68,10 +69,11 @@ PEAK_F32_FLOPS = 67e12
 PEAK_BF16_FLOPS = 989e12
 PEAK_INT8_OPS = 1979e12
 PEAK_BYTES = 3.35e12
-#: PR 5's eager decode loop (one host sync per token), large-v3 at the
-#: 32-token cap, chip call 35 on "NVIDIA H100 80GB HBM3, 700.00 W" (PERF.md
-#: section 5): printed beside this run's figures
-PR5_CALL35 = {
+#: the eager decode loop that the graph loop replaced (one host sync and
+#: ~1,300 launches per token), large-v3 at the 32-token cap on "NVIDIA H100
+#: 80GB HBM3, 700.00 W", as PERF.md section 5 records it: printed beside this
+#: run's figures
+EAGER_LOOP = {
     None: {"tick_p50_ms": 1087.5, "host_ms_per_token": 36.02, "kernel_ms_per_token": 4.84,
            "busy": "13%"},
     "int4": {"tick_p50_ms": 981.4, "host_ms_per_token": 37.85, "kernel_ms_per_token": 4.36,
@@ -546,10 +548,11 @@ def phase_full_width(guard: FailOnLog, quantization: str | None = None) -> dict:
           f"(median of 3 windows), {dev_tok} of kernels per token, over {n_tokens} "
           f"(prefill included; card busy {share['decode']}); "
           f"max_memory_allocated {peak_gib:.2f} GiB")
-    pr5 = PR5_CALL35[quantization]
-    print(f"{label}: PR 5 call 35 (eager loop) for comparison: tick p50 "
-          f"{pr5['tick_p50_ms']} ms, decode {pr5['host_ms_per_token']} ms per token on the "
-          f"host clock, {pr5['kernel_ms_per_token']} ms of kernels, card busy {pr5['busy']}")
+    eager = EAGER_LOOP[quantization]
+    print(f"{label}: the eager loop (PERF.md section 5) for comparison: tick p50 "
+          f"{eager['tick_p50_ms']} ms, decode {eager['host_ms_per_token']} ms per token on "
+          f"the host clock, {eager['kernel_ms_per_token']} ms of kernels, card busy "
+          f"{eager['busy']}")
     print(f"{label}: decode loop as CUDA graphs of K = {loop.k} steps: {graphs['captures']} "
           f"captures in {graphs['capture_s']:.2f} s, graph pool "
           f"{loop.stats['graph_bytes'] / 2**20:.1f} MiB, state buffers "
