@@ -12,19 +12,32 @@ Phases, each failing the run with a non-zero exit:
      ragged last block (801 frames) and a 1 s window, with times at a cold
      and a warm L2 beside its bound and the dense-DFT design's bound;
   4. golden parity at f32: the committed test-tiny weights must reproduce the
-     recorded offline tokens and streaming text of tests/fixtures/golden;
+     recorded offline tokens and streaming text of tests/fixtures/golden, and
+     the pipelined rows: the synchronous, exact and async streams of the 3
+     clips under prefix policy "last" commit the recorded words (exact's
+     equal to the synchronous stream's);
   5. the main path at full width: large-v3 in bf16 with seeded random weights,
      one offline 16 s transcribe and an 8 s stream at 1 s chunks through
      OnlineASRProcessor, with every kernel launch counted (the decode loop's
      steps as CUDA graphs: the launches of each replay count) and the host
-     syncs of each window's decode counted by torch's sync debug mode
-     (at most 1 + ceil((max_new - 1) / K)); tick p50/p95, decode ms per
-     token, the card's busy share, a PhaseTimer split of a tick and the
-     graphs' captures, capture seconds and memory, beside the eager loop's
-     figures;
+     syncs of each window's decode counted (its dispatch's by torch's sync
+     debug mode: the loop's host checks only; its finalize's: one wait for
+     the result copy's event, nothing else; at most 1 + ceil((max_new - 1)
+     / K) in all); tick p50/p95, decode ms per token, the card's busy
+     share, a PhaseTimer split of a tick and the graphs' captures, capture
+     seconds and memory, beside the eager loop's figures;
      then the graph path's packed result against the same step run
      uncaptured on the card, bit for bit, at the 16 s and 8 s windows, each
-     with and without a draft;
+     with no draft, a host draft and a forced device draft (whose tokens
+     must come back verbatim);
+     then pipelined ticks on the same ASR and graphs: the 8 s stream under
+     prefix policy "last", synchronous, exact and async (the device draft)
+     in three rounds taken in turns, with K1 launched in each stream; exact
+     must commit the synchronous stream's words bit for bit and every async
+     run the same words, no exception swallowed; per mode process_iter
+     p50/p95, the dispatch-to-apply latency, dispatch and finalize host ms
+     and the finalize's wait, captures and the host syncs of each window as
+     above;
   6. the packed-int4 kernel family (K2) against its plain versions, bit for
      bit, at the large-v3 decode shapes (M = 1), its prefill spans (M = 2,
      4, 8 and 24), the 16 s cross-K/V shape (M = 800) and the test-tiny
@@ -39,7 +52,10 @@ Phases, each failing the run with a non-zero exit:
      structure predicts (per layer, 2 cross-K/V linears per encoded window
      and 6 linears per decoder pass: each prefill span, each warm-up step and
      each replayed step, 1 launch at M <= 8 and 2 above), and every K2 code
-     path it took among those phase 6 held against the plain version;
+     path it took among those phase 6 held against the plain version; then
+     one async pipelined stream (its device drafts add the 16-slot prefill
+     spans), its K2 launches again equal to the prediction and its paths
+     held;
   9. the fused matmul chain (K3) against its plain version at T = 800,
      D = 1280, k in {1, 8, 32}, one launch per chain, with times; then the
      port's encoder microbenchmark section (bf16 and int8-all encoder).
@@ -50,6 +66,7 @@ is absent. Imports nothing of JAX.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import logging
 import math
@@ -167,6 +184,119 @@ class FailOnLog(logging.Handler):
 
     def emit(self, record):
         self.records.append(record.getMessage())
+
+
+@contextlib.contextmanager
+def sync_warnings():
+    """Collects the messages of the host syncs torch's sync debug mode sees
+    in the block (it does not see waits on CUDA events)."""
+    import torch
+
+    seen: list[str] = []
+    torch.cuda.set_sync_debug_mode("warn")
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            yield seen
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    seen.extend(str(w.message) for w in caught if "synchroniz" in str(w.message))
+
+
+class TickProbe:
+    """While installed, records for each window the ASR decodes: the host
+    syncs of its decode's dispatch (torch's sync debug mode; the loop's host
+    checks are the only ones it may make) and of its finalize (the debug
+    mode's, none allowed, and its waits on CUDA events, which the debug mode
+    does not see: exactly one, the result copy's), whether a graph was
+    captured in it, and the ASR's host ms in each half of the tick (plan,
+    upload, device draft, encode and the decode's dispatch; the wait and
+    the parse) and in the wait; also the aux bundles a device draft was
+    written into."""
+
+    def __init__(self, asr):
+        self.asr = asr
+        self.windows: list[dict] = []
+        self.half_ms: dict[str, list[float]] = {"dispatch": [], "finalize": []}
+        self.wait_ms: list[float] = []
+        self.draft_aux: list = []
+
+    def __enter__(self):
+        import torch
+
+        from realtime_whisper_asr_tpu_torch.models.whisper import decode as D
+
+        asr, loop, windows, half = self.asr, self.asr.decode_loop, self.windows, self.half_ms
+        self._saved = (D.greedy_decode_dispatch, D.greedy_decode_finalize,
+                       D.patch_aux_device_draft, torch.cuda.Event.synchronize)
+        dispatch, finalize, patch, event_sync = self._saved
+        waits = [0]
+
+        def counted_event_sync(event):
+            waits[0] += 1
+            t0 = time.perf_counter()
+            event_sync(event)
+            self.wait_ms.append(1e3 * (time.perf_counter() - t0))
+
+        def counted_dispatch(model, xa, opts, plan, *args, **kwargs):
+            checks, captures = loop.stats["checks"], loop.stats["captures"]
+            with sync_warnings() as seen:
+                handle = dispatch(model, xa, opts, plan, *args, **kwargs)
+            handle.probe = {"dispatch": len(seen), "checks": loop.stats["checks"] - checks,
+                            "allowed": 1 + math.ceil((plan.max_new - 1) / loop.k),
+                            "captured": loop.stats["captures"] > captures}
+            return handle
+
+        def counted_finalize(handle):
+            before = waits[0]
+            with sync_warnings() as seen:
+                res = finalize(handle)
+            windows.append({**handle.probe, "finalize": len(seen), "waits": waits[0] - before})
+            return res
+
+        def counted_patch(aux, *args, **kwargs):
+            self.draft_aux.append(aux)  # its draft length is read after the run
+            return patch(aux, *args, **kwargs)
+
+        def timed(fn, key):
+            def call(*args, **kwargs):
+                t0 = time.perf_counter()
+                out = fn(*args, **kwargs)
+                half[key].append(1e3 * (time.perf_counter() - t0))
+                return out
+            return call
+
+        D.greedy_decode_dispatch, D.greedy_decode_finalize = counted_dispatch, counted_finalize
+        D.patch_aux_device_draft = counted_patch
+        torch.cuda.Event.synchronize = counted_event_sync
+        asr._transcribe_window_dispatch = timed(asr._transcribe_window_dispatch, "dispatch")
+        asr._transcribe_window_finalize = timed(asr._transcribe_window_finalize, "finalize")
+        return self
+
+    def __exit__(self, *exc):
+        import torch
+
+        from realtime_whisper_asr_tpu_torch.models.whisper import decode as D
+
+        (D.greedy_decode_dispatch, D.greedy_decode_finalize, D.patch_aux_device_draft,
+         torch.cuda.Event.synchronize) = self._saved
+        del self.asr._transcribe_window_dispatch, self.asr._transcribe_window_finalize
+
+    def check(self, what: str) -> None:
+        """Fails unless every window's finalize made exactly one wait and no
+        other sync, and every window that captured no graph made only its
+        loop's checks in the dispatch, within the bound in all."""
+        bad = [w for w in self.windows
+               if w["finalize"] or w["waits"] != 1
+               or (not w["captured"] and (w["dispatch"] != w["checks"]
+                                          or w["dispatch"] + w["waits"] > w["allowed"]))]
+        if bad or not self.windows:
+            raise AssertionError(f"{what}: host syncs of a window outside the bound (or no "
+                                 f"window): {bad}")
+
+    def syncs(self) -> str:
+        return " ".join(f"{w['dispatch']}+{w['waits']}/{w['allowed']}{'*' if w['captured'] else ''}"
+                        for w in self.windows)
 
 
 def phase_card() -> str:
@@ -318,6 +448,37 @@ def run_stream(asr, audio: np.ndarray, guard: FailOnLog, tick_ms: list | None = 
     return asr.sep.join(pieces).strip()
 
 
+def run_policy_last(asr, audio: np.ndarray, guard: FailOnLog, pipeline) -> dict:
+    """The stream of the golden pipelined rows (tools/golden.py): 1 s
+    chunks, trimming at 15 s, prefix policy "last", ``pipeline`` False,
+    True (exact) or "async". Returns the committed words (times rounded to
+    the ms, as the rows store them), each process_iter call's host ms and
+    each applied tick's dispatch-to-apply ms (``last_apply_latency_s``)."""
+    from realtime_whisper_asr_tpu_torch.streaming import OnlineASRProcessor
+
+    proc = OnlineASRProcessor(asr, buffer_trimming=("segment", 15.0), prefix_policy="last",
+                              pipeline=pipeline)
+    calls, applies = [], []
+    apply = proc.apply_result
+
+    def timed_apply(res, proc_delay_s=0.0, time_offset=None):
+        out = apply(res, proc_delay_s, time_offset)
+        applies.append(1e3 * proc.last_apply_latency_s)
+        return out
+
+    proc.apply_result = timed_apply
+    for pos in range(0, len(audio), SR):
+        proc.insert_audio_chunk(audio[pos : pos + SR])
+        t0 = time.perf_counter()
+        proc.process_iter()
+        calls.append(1e3 * (time.perf_counter() - t0))
+    proc.finish()
+    if guard.records:
+        raise AssertionError(f"streaming loop swallowed an exception: {guard.records}")
+    return {"commits": [[round(float(b), 3), round(float(e), 3), w] for b, e, w in proc.commited],
+            "calls": calls, "applies": applies}
+
+
 def phase_golden(guard: FailOnLog) -> None:
     import torch
 
@@ -345,6 +506,22 @@ def phase_golden(guard: FailOnLog) -> None:
         raise AssertionError(f"golden: {asr.counters['ticks']} ticks, expected {ticks}")
     print(f"golden f32: offline tokens and streaming text of 3 clips equal the recorded "
           f"fixture ({ticks} ticks)")
+    rows = recorded["matrix"]
+    for i in range(3):
+        audio = golden_audio(i)
+        got = {mode: run_policy_last(asr, audio, guard, mode)["commits"]
+               for mode in (False, True, "async")}
+        for mode, want in ((False, rows["pipeline_async"]["sync_commits"][i]),
+                           (True, rows["pipeline_exact"]["commits"][i]),
+                           ("async", rows["pipeline_async"]["commits"][i])):
+            if got[mode] != want:
+                raise AssertionError(f"golden pipelined clip {i}, pipeline={mode!r}: commits "
+                                     f"{got[mode]} != recorded {want}")
+        if got[True] != got[False]:
+            raise AssertionError(f"golden pipelined clip {i}: exact commits differ from sync")
+    print("golden f32 pipelined rows: the sync, exact and async commits of 3 clips under prefix "
+          "policy \"last\" equal pipeline_async.sync_commits, pipeline_exact.commits and "
+          "pipeline_async.commits; exact equals sync")
 
 
 def phase_full_width(guard: FailOnLog, quantization: str | None = None) -> dict:
@@ -389,45 +566,28 @@ def phase_full_width(guard: FailOnLog, quantization: str | None = None) -> dict:
             return _inner(first, *args, **kwargs)
 
         setattr(asr.model, name, counted)
-    # host syncs of each window's decode: (seen, allowed, whether it captured)
-    syncs: list[tuple[int, int, bool]] = []
-    greedy_decode = D.greedy_decode
-
-    def sync_counted_decode(model, xa, opts, plan, *args, **kwargs):
-        captures = loop.stats["captures"]
-        torch.cuda.set_sync_debug_mode("warn")
-        with warnings.catch_warnings(record=True) as caught:
-            warnings.simplefilter("always")
-            res = greedy_decode(model, xa, opts, plan, *args, **kwargs)
-        torch.cuda.set_sync_debug_mode(0)
-        seen = sum("synchroniz" in str(w.message) for w in caught)
-        syncs.append((seen, 1 + math.ceil((plan.max_new - 1) / loop.k),
-                      loop.stats["captures"] > captures))
-        return res
-
     offline_audio = np.concatenate([golden_audio(i) for i in range(2)])  # 16 s
     stream_audio = golden_audio(2)  # 8 s
     torch.cuda.reset_peak_memory_stats()
 
     # ---- the main path, with the launch counts read around it
-    D.greedy_decode = sync_counted_decode
-    logmel.logmel_launches = 0
-    int4_matmul.int4_launches = 0
-    rows["windows"].clear()
-    rows["spans"].clear()
-    stats0 = dict(loop.stats)
-    t0 = time.perf_counter()
-    asr.transcribe(offline_audio)
-    torch.cuda.synchronize()
-    offline_s = time.perf_counter() - t0
-    tick_ms: list[float] = []
-    run_stream(asr, stream_audio, guard, tick_ms)
-    steps = (loop.stats["warmup_steps"] - stats0["warmup_steps"]
-             + loop.k * (loop.stats["replays"] - stats0["replays"]))
-    launches = {"logmel": logmel.logmel_launches, "int4": int4_matmul.int4_launches,
-                "passes": len(rows["spans"]) + steps}
+    with TickProbe(asr) as probe:
+        logmel.logmel_launches = 0
+        int4_matmul.int4_launches = 0
+        rows["windows"].clear()
+        rows["spans"].clear()
+        stats0 = dict(loop.stats)
+        t0 = time.perf_counter()
+        asr.transcribe(offline_audio)
+        torch.cuda.synchronize()
+        offline_s = time.perf_counter() - t0
+        tick_ms: list[float] = []
+        run_stream(asr, stream_audio, guard, tick_ms)
+        steps = (loop.stats["warmup_steps"] - stats0["warmup_steps"]
+                 + loop.k * (loop.stats["replays"] - stats0["replays"]))
+        launches = {"logmel": logmel.logmel_launches, "int4": int4_matmul.int4_launches,
+                    "passes": len(rows["spans"]) + steps}
     # ----
-    D.greedy_decode = greedy_decode
     graphs = {k: loop.stats[k] - stats0[k] for k in loop.stats}
 
     ticks = 1 + len(stream_audio) // SR
@@ -439,45 +599,14 @@ def phase_full_width(guard: FailOnLog, quantization: str | None = None) -> dict:
                              f"encoded windows")
     if graphs["replays"] == 0 or graphs["eager_steps"] != 0:
         raise AssertionError(f"the decode loop did not run as CUDA graphs: {graphs}")
-    if not all(1 <= seen <= allowed for seen, allowed, captured in syncs if not captured):
-        raise AssertionError(f"host syncs per window (seen, allowed, captured): {syncs}")
-    if all(captured for _, _, captured in syncs):
-        raise AssertionError(f"every window captured a graph; no replay-only window: {syncs}")
-    # K2 serves every int4 product: per encoded window the cross key and
-    # value of each decoder layer, per decoder pass each layer's fused qkv,
-    # self out, cross query, cross out, fc1 and fc2 (the head is int8); an
-    # int4_linear is one launch at M <= DECODE_MAX_M rows and two above
+    probe.check(label)
+    if all(w["captured"] for w in probe.windows):
+        raise AssertionError(f"every window captured a graph; no replay-only window: "
+                             f"{probe.windows}")
     if len(rows["windows"]) != ticks:
         raise AssertionError(f"{len(rows['windows'])} encoded windows, expected {ticks}")
     int4 = quantization in ("int4", "int4-all")
-
-    def per_linear(m: int) -> int:
-        return 1 if m <= int4_matmul.DECODE_MAX_M else 2
-
-    passes = rows["spans"] + [1] * steps
-    win = sum(per_linear(m) for m in rows["windows"])
-    dec = sum(per_linear(m) for m in passes)
-    predicted = asr.cfg.n_text_layer * (2 * win + 6 * dec) if int4 else 0
-    small = sum(m <= int4_matmul.DECODE_MAX_M for m in passes)
-    formula = (f"{asr.cfg.n_text_layer} layers x (2 x {ticks} windows x 2 launches + 6 x "
-               f"({small} passes of <= {int4_matmul.DECODE_MAX_M} rows x 1 + "
-               f"{len(passes) - small} passes x 2)); the passes are {len(rows['spans'])} "
-               f"prefill spans, {graphs['warmup_steps']} warm-up steps and "
-               f"{graphs['replays']} replays x {loop.k} steps")
-    if win != 2 * ticks:
-        raise AssertionError(f"an encoded window of <= {int4_matmul.DECODE_MAX_M} rows: "
-                             f"{rows['windows']}")
-    if launches["int4"] != predicted:
-        raise AssertionError(f"K2 launched {launches['int4']} times, predicted {predicted} "
-                             f"({formula})")
-    if int4:  # every K2 path this run took is held against its plain version
-        used = {k2_path(m) for m in rows["windows"] + passes}
-        held = {k2_path(m) for _, m, k, _ in INT4_SHAPES if k >= asr.cfg.n_text_state}
-        if used - held:
-            raise AssertionError(f"K2 paths {sorted(used - held)} ran at large-v3 widths but no "
-                                 f"row of INT4_SHAPES holds them against the plain version")
-        print(f"{label}: K2 paths taken {sorted(used)} (rows of the decoder passes: "
-              f"{sorted(set(passes))}), each held bit for bit in the K2 phases")
+    predicted, formula = check_k2_launches(label, asr, rows, graphs, launches["int4"], int4)
     for res in results:
         if not res.tokens or not all(0 <= t < asr.cfg.n_vocab for t in res.tokens):
             raise AssertionError(f"tokens out of range or empty: {res.tokens}")
@@ -558,8 +687,8 @@ def phase_full_width(guard: FailOnLog, quantization: str | None = None) -> dict:
           f"{loop.stats['graph_bytes'] / 2**20:.1f} MiB, state buffers "
           f"{graphs['state_bytes'] / 2**20:.1f} MiB, {graphs['replays']} replays, "
           f"{graphs['warmup_steps']} warm-up steps, {graphs['checks']} host checks; host syncs "
-          f"per window (seen/allowed, * = captured in it): "
-          + " ".join(f"{seen}/{allowed}{'*' if cap else ''}" for seen, allowed, cap in syncs))
+          f"per window (dispatch + finalize waits / allowed, * = captured in it): "
+          + probe.syncs())
 
     # the stream again, every loop shape it meets captured already
     warm_ms: list[float] = []
@@ -579,15 +708,162 @@ def phase_full_width(guard: FailOnLog, quantization: str | None = None) -> dict:
           f"{measure_sync_floor():.3f} ms): "
           + ", ".join(f"{k} {v['mean_ms']}" for k, v in report.items()))
     check_graph_equals_uncaptured(asr, label, offline_audio, stream_audio)
+    phase_pipelined(asr, guard, label, rows, int4)
     return launches
+
+
+def check_k2_launches(label: str, asr, rows: dict, graphs: dict, launched: int,
+                      int4: bool) -> tuple[int, str]:
+    """K2's launches in a run against the count the model's structure
+    predicts from the run's encoded windows, prefill spans (``rows``) and
+    loop steps (``graphs``: warm-up steps, and K per replay); for the int4
+    tiers, every K2 code path the run took must be among those the K2
+    phases hold bit for bit. -> (predicted, how)."""
+    from realtime_whisper_asr_tpu_torch.ops import int4_matmul
+
+    # K2 serves every int4 product: per encoded window the cross key and
+    # value of each decoder layer, per decoder pass each layer's fused qkv,
+    # self out, cross query, cross out, fc1 and fc2 (the head is int8); an
+    # int4_linear is one launch at M <= DECODE_MAX_M rows and two above
+    def per_linear(m: int) -> int:
+        return 1 if m <= int4_matmul.DECODE_MAX_M else 2
+
+    k = asr.decode_loop.k
+    passes = rows["spans"] + [1] * (graphs["warmup_steps"] + k * graphs["replays"])
+    win = sum(per_linear(m) for m in rows["windows"])
+    dec = sum(per_linear(m) for m in passes)
+    predicted = asr.cfg.n_text_layer * (2 * win + 6 * dec) if int4 else 0
+    small = sum(m <= int4_matmul.DECODE_MAX_M for m in passes)
+    formula = (f"{asr.cfg.n_text_layer} layers x (2 x {len(rows['windows'])} windows x 2 "
+               f"launches + 6 x ({small} passes of <= {int4_matmul.DECODE_MAX_M} rows x 1 + "
+               f"{len(passes) - small} passes x 2)); the passes are {len(rows['spans'])} "
+               f"prefill spans, {graphs['warmup_steps']} warm-up steps and "
+               f"{graphs['replays']} replays x {k} steps")
+    if win != 2 * len(rows["windows"]):
+        raise AssertionError(f"an encoded window of <= {int4_matmul.DECODE_MAX_M} rows: "
+                             f"{rows['windows']}")
+    if launched != predicted:
+        raise AssertionError(f"{label}: K2 launched {launched} times, predicted {predicted} "
+                             f"({formula})")
+    if int4:  # every K2 path this run took is held against its plain version
+        used = {k2_path(m) for m in rows["windows"] + passes}
+        held = {k2_path(m) for _, m, kk, _ in INT4_SHAPES if kk >= asr.cfg.n_text_state}
+        if used - held:
+            raise AssertionError(f"K2 paths {sorted(used - held)} ran at large-v3 widths but no "
+                                 f"row of INT4_SHAPES holds them against the plain version")
+        spans = sorted(set(rows["spans"]))
+        unheld = sorted(set(spans) - {m for _, m, _, _ in INT4_SHAPES})
+        print(f"{label}: K2 paths taken {sorted(used)} (rows of the prefill spans: {spans}"
+              + (f"; spans whose row count no K2 shape holds itself: {unheld}" if unheld else "")
+              + "), each path held bit for bit in the K2 phases")
+    return predicted, formula
+
+
+#: rounds of the bf16 pipelined phase: each round streams synchronously,
+#: exact and async, in an order that turns from round to round, so the
+#: modes' host-clock times are compared in turns within one call
+PIPELINE_ROUNDS = 3
+
+
+def phase_pipelined(asr, guard: FailOnLog, label: str, rows: dict, int4: bool) -> None:
+    """Pipelined ticks at full width on phase 5's ASR and graphs: the 8 s
+    stream under prefix policy "last", synchronously, exact and async in
+    ``PIPELINE_ROUNDS`` rounds (bf16), or async once (int4); each stream a
+    run of its own with the launch counts set to 0 just before it and read
+    just after: K1 launched once a window, K2 (int4) as predicted, with the
+    16-slot prefill spans the device drafts add. Exact must commit the
+    synchronous stream's words bit for bit in every round, and every async
+    run the same words; host syncs per window as in phase 5
+    (``TickProbe``). Prints each run, then each mode's figures pooled over
+    its runs: process_iter p50/p95, dispatch-to-apply p50, the ASR's
+    dispatch and finalize host ms, the finalize's wait."""
+    from realtime_whisper_asr_tpu_torch.models.whisper import decode as D
+    from realtime_whisper_asr_tpu_torch.ops import int4_matmul, logmel
+
+    loop = asr.decode_loop
+    audio = golden_audio(2)
+    modes = [("sync", False), ("exact", True), ("async", "async")]
+    order = ([[("async", "async")]] if int4 else
+             [modes[r % 3:] + modes[: r % 3] for r in range(PIPELINE_ROUNDS)])
+    pooled: dict[str, dict[str, list]] = {}
+    commits: dict[str, list] = {}
+    for r, runs in enumerate(order):
+        for name, mode in runs:
+            stats0 = dict(loop.stats)
+            rows["windows"].clear()
+            rows["spans"].clear()
+            # ---- this stream's run, with the launch counts read around it
+            logmel.logmel_launches = 0
+            int4_matmul.int4_launches = 0
+            with TickProbe(asr) as probe:
+                run = run_policy_last(asr, audio, guard, mode)
+            launched = {"logmel": logmel.logmel_launches, "int4": int4_matmul.int4_launches}
+            # ----
+            graphs = {k: loop.stats[k] - stats0[k] for k in loop.stats}
+            what = f"{label} pipelined {name} (round {r + 1})"
+            probe.check(what)
+            windows = len(probe.windows)
+            if launched["logmel"] != windows or windows != len(rows["windows"]):
+                raise AssertionError(f"{what}: logmel launched {launched['logmel']} times, "
+                                     f"{windows} windows decoded, {len(rows['windows'])} "
+                                     f"encoded")
+            predicted, formula = check_k2_launches(what, asr, rows, graphs, launched["int4"],
+                                                   int4)
+            forced = [-int(aux[0, D.AUX_TOK + 5]) for aux in probe.draft_aux]
+            if mode == "async" and not forced:
+                raise AssertionError(f"{what}: no tick was dispatched with a device draft")
+            first = commits.setdefault(name, run["commits"])
+            if run["commits"] != first:
+                raise AssertionError(f"{what}: commits {run['commits']} differ from the first "
+                                     f"{name} run's {first}")
+            pool = pooled.setdefault(name, {"calls": [], "applies": [], "dispatch": [],
+                                            "finalize": [], "wait": []})
+            for key, values in (("calls", run["calls"]), ("applies", run["applies"]),
+                                ("dispatch", probe.half_ms["dispatch"]),
+                                ("finalize", probe.half_ms["finalize"]),
+                                ("wait", probe.wait_ms)):
+                pool[key].extend(values)
+            calls = np.percentile(run["calls"], [50, 95])
+            print(f"{what}: process_iter p50 {calls[0]:.1f} ms p95 {calls[1]:.1f} ms, "
+                  f"dispatch-to-apply p50 {np.median(run['applies']):.1f} ms; "
+                  f"{graphs['replays']} replays of {loop.k} steps; prefill spans of "
+                  f"{sorted(set(rows['spans']))} rows; "
+                  f"{graphs['captures']} captures ({len(loop._graphs)} loop shapes kept of "
+                  f"{D.MAX_GRAPHS}); device drafts forcing {forced} tokens; logmel launches "
+                  f"{launched['logmel']} = windows; K2 launches {launched['int4']} (predicted "
+                  f"{predicted}" + (f" = {formula})" if int4 else ")")
+                  + f"; {len(run['commits'])} words committed; host syncs per window "
+                  f"(dispatch + finalize waits / allowed, * = captured in it): {probe.syncs()}")
+            if r and graphs["captures"]:
+                print(f"{what}: captures recur after the first round ({graphs['captures']}): "
+                      f"more loop shapes are live than the {len(loop._graphs)} kept")
+    if not int4 and commits["exact"] != commits["sync"]:
+        raise AssertionError(f"{label}: exact commits {commits['exact']} != sync commits "
+                             f"{commits['sync']}")
+    for name, pool in pooled.items():
+        pct = {k: np.percentile(v, [50, 95]) for k, v in pool.items()}
+        print(f"{label} pipelined {name}, {len(pool['applies'])} ticks over "
+              f"{len(pool['applies']) // (len(audio) // SR)} runs: process_iter p50 "
+              f"{pct['calls'][0]:.1f} ms p95 {pct['calls'][1]:.1f} ms; dispatch-to-apply "
+              f"(last_apply_latency_s) p50 {pct['applies'][0]:.1f} ms p95 "
+              f"{pct['applies'][1]:.1f} ms; ASR dispatch p50 {pct['dispatch'][0]:.2f} ms, "
+              f"finalize p50 {pct['finalize'][0]:.2f} ms (its wait for the result copy p50 "
+              f"{pct['wait'][0]:.3f} ms, max {max(pool['wait']):.3f} ms)")
+    if not int4:
+        print(f"{label} pipelined: in each of {PIPELINE_ROUNDS} rounds exact committed the "
+              f"synchronous stream's words bit for bit ({len(commits['sync'])} words); every "
+              f"async run committed the same {len(commits['async'])} words")
 
 
 def check_graph_equals_uncaptured(asr, label: str, *clips: np.ndarray) -> None:
     """The graph path's packed result against the same step function run
     uncaptured on the card (``DecodeLoop`` at the same K, no capture), bit
-    for bit, for each clip's window and once more with a draft (the first 4
-    sampled tokens forced, the next 8 drafted). On a difference, prints the
-    first divergent token and the top-2 logit margin of the uncaptured path
+    for bit, for each clip's window, once more with a host draft (the first
+    4 sampled tokens forced, the next 8 drafted), and once with a forced
+    device draft (``decode.patch_aux_device_draft`` from the first packed
+    result, still on the card, at offset 1 with a safety tail of 2: its
+    tokens must come back verbatim). On a difference, prints the first
+    divergent token and the top-2 logit margin of the uncaptured path
     there, and fails."""
     import torch
 
@@ -599,19 +875,36 @@ def check_graph_equals_uncaptured(asr, label: str, *clips: np.ndarray) -> None:
     for audio in clips:
         with torch.inference_mode():
             xa = asr._logmel_encode(torch.from_numpy(asr._pad_window(audio)).cuda())
-        plan = D.plan_window(cfg, opts)
-        for drafted in (False, True):
-            if drafted:
-                ids = [int(t) for t in graph_packed[: plan.max_new]]
+        plan0 = D.plan_window(cfg, opts)
+        for variant in ("no draft", "host draft", "forced device draft"):
+            if variant == "no draft":
+                plan = plan0
+            elif variant == "host draft":
+                ids = [int(t) for t in first.cpu()[: plan0.max_new]]
                 plan = D.plan_window(cfg, opts, None, ids[:4], ids[4:12])
+            else:
+                plan = D.plan_window(cfg, opts, force_draft_bucket=True)
             aux = torch.from_numpy(plan.aux).cuda()[None]
-            graph_packed, eager_packed = (
+            if variant == "forced device draft":
+                D.patch_aux_device_draft(aux, first, 1, plan0.max_new, first.numel(), cfg.eot,
+                                         force=True, safety=2)
+            graph_dev, eager_packed = (
                 D._decode_window(asr.model, opts, xa, aux, plan, asr._extra_suppress, None,
-                                 loop, captured=captured).cpu()
+                                 loop, captured=captured)
                 for loop, captured in ((asr.decode_loop, True),
                                        (D.DecodeLoop(k=asr.decode_loop.k), False)))
+            graph_packed, eager_packed = graph_dev.cpu(), eager_packed.cpu()
+            if variant == "no draft":
+                first = graph_dev
+            if variant == "forced device draft":
+                n = -int(aux[0, D.AUX_TOK + 5])
+                forced = graph_packed[:n].long().tolist()
+                if n <= 0 or forced != first.cpu()[1 : 1 + n].long().tolist():
+                    raise AssertionError(f"{label}: forced device draft of {n} tokens, decoded "
+                                         f"{forced}, not the first result's tokens 1..{n}")
+                variant += f" of {n} tokens"
             what = (f"{label} {xa.shape[1] // 50} s window, p={len(plan.init)}, draft_max="
-                    f"{plan.draft_max}")
+                    f"{plan.draft_max}, {variant}")
             if torch.equal(graph_packed.view(torch.int32), eager_packed.view(torch.int32)):
                 done.append(what)
                 continue
@@ -644,7 +937,8 @@ def _bound(nbytes: float, ops: float, peak_ops: float) -> tuple[float, str]:
 #: K2 shapes (name, M, K, N): large-v3's decode step (M = 1: fused qkv, self
 #: and cross wo, fc1, fc2); its prefill spans, short (the start-of-transcript
 #: prompt, M = 2 to 8: each of the decode kernel's row counts) and long
-#: (M = 24, above 8 rows: the tensor-core product, fc2 over all 40 groups);
+#: (M = 24, above 8 rows: the tensor-core product, fc2 over all 40 groups;
+#: M = 32 and 48: the 16-slot draft spans after prompts of 16 and 32);
 #: the cross-K/V projection at the 16 s bucket; and test-tiny's (one scale
 #: group at K = 64; the fused-qkv N = 192; two groups). Every path the
 #: large-v3 int4 run takes is among them (phase_full_width checks it).
@@ -661,6 +955,8 @@ INT4_SHAPES = (
     ("prefill qkv M=24", 24, 1280, 3840),
     ("prefill fc1 M=24", 24, 1280, 5120),
     ("prefill fc2 M=24", 24, 5120, 1280),
+    ("draft span fc1 M=32", 32, 1280, 5120),
+    ("draft span fc2 M=48", 48, 5120, 1280),
     ("cross-K/V 16 s", 800, 1280, 1280),
     ("test-tiny qkv G=1", 1, 64, 192),
     ("test-tiny prefill G=1", 17, 64, 192),

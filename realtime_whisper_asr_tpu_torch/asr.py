@@ -14,6 +14,12 @@ decode's aux bundle, from pinned memory → log-mel (the hand-written CUDA
 kernel) → encoder → greedy decode with cross-attention capture (on the card
 its loop replays CUDA graphs, ``decode.DecodeLoop``) → one device→host copy
 of the packed result → segments with DTW word timestamps.
+
+A window is ``transcribe_dispatch`` (everything up to the start of the
+result's copy) then ``transcribe_finalize`` (the wait for that copy and the
+parse); ``transcribe`` runs the two back to back, and the pipelined
+streaming loop (``streaming/online.py``) puts the next tick's dispatch
+between them.
 """
 
 from __future__ import annotations
@@ -141,6 +147,12 @@ class TorchWhisperASR:
         self.task = "transcribe"
         self.word_timestamps = word_timestamps
         self.transcribe_kargs: dict = {}
+        #: anti-hallucination guard: cap the transcript per window at
+        #: ``8 + rate × window_seconds`` tokens (real speech lands at ~3-4
+        #: tokens/s), so a repetition loop on a short window stops early;
+        #: None disables. Rides in the aux bundle as the exact cap, so it
+        #: adds no loop shape.
+        self.max_tokens_per_second: Optional[float] = None
         self._vad_flag = False  # protocol parity; VAD is the VAC processor's job
         #: the decode loop of every window: on the card its CUDA graphs, one
         #: per loop shape, captured at a shape's first window
@@ -189,6 +201,14 @@ class TorchWhisperASR:
         """(n,) f32 window on the device -> encoder output (1, n/320, d)."""
         mel = log_mel_spectrogram(audio, n_mels=self.cfg.n_mels)
         return self.model.encode(mel.to(self.model.dtype)[None])
+
+    def _density_cap(self, max_new_cap: int, n_prefix: int, window_samples: int) -> int:
+        """The plan's exact cap with the per-second transcript cap folded in
+        (``max_tokens_per_second``); unchanged when that is None."""
+        if self.max_tokens_per_second is None:
+            return max_new_cap
+        total = int(8 + self.max_tokens_per_second * window_samples / SAMPLING_RATE)
+        return max(1, min(max_new_cap, total - n_prefix))
 
     def _make_opts(self) -> D.DecodeOptions:
         return D.DecodeOptions(
@@ -242,6 +262,38 @@ class TorchWhisperASR:
                 offset += WINDOW_SAMPLES
         return TranscriptionResult(segments)
 
+    @torch.inference_mode()
+    def transcribe_dispatch(
+        self,
+        audio: np.ndarray,
+        init_prompt: str = "",
+        prefix_ids: Optional[list[int]] = None,
+        draft_ids: Optional[list[int]] = None,
+        device_draft: Optional[dict] = None,
+    ) -> dict:
+        """The first half of ``transcribe`` for a window of ≤ 30 s: plan,
+        upload, log-mel, encode and the decode up to the start of its
+        result's copy. Returns a handle for ``transcribe_finalize``.
+
+        ``device_draft`` (the async-pipelined streaming loop): ``{"packed",
+        "offset", "max_new", "row_len", "force", "safety"}``, the previous
+        tick's packed result still on the card, written into this tick's
+        draft slots there (``decode.patch_aux_device_draft``) in place of
+        ``draft_ids``. Longer input is windowed synchronously, as
+        ``transcribe`` does, its result wrapped in the handle."""
+        audio = np.asarray(audio, np.float32)
+        if len(audio) > WINDOW_SAMPLES:
+            return {"sync_result": self.transcribe(audio, init_prompt, prefix_ids, draft_ids)}
+        return self._transcribe_window_dispatch(audio, init_prompt, 0.0, prefix_ids, draft_ids,
+                                                device_draft=device_draft)
+
+    def transcribe_finalize(self, st: dict) -> TranscriptionResult:
+        """The second half of ``transcribe``: wait for the result's copy,
+        then parse it."""
+        if "sync_result" in st:
+            return st["sync_result"]
+        return self._transcribe_window_finalize(st)
+
     def _transcribe_window(
         self,
         audio: np.ndarray,
@@ -251,15 +303,37 @@ class TorchWhisperASR:
         draft_ids: Optional[list[int]] = None,
         prompt_ids: Optional[list[int]] = None,  # overrides init_prompt (carry)
     ) -> TranscriptionResult:
+        return self._transcribe_window_finalize(self._transcribe_window_dispatch(
+            audio, init_prompt, time_offset, prefix_ids, draft_ids, prompt_ids))
+
+    def _transcribe_window_dispatch(
+        self,
+        audio: np.ndarray,
+        init_prompt: str,
+        time_offset: float,
+        prefix_ids: Optional[list[int]] = None,
+        draft_ids: Optional[list[int]] = None,
+        prompt_ids: Optional[list[int]] = None,  # overrides init_prompt (carry)
+        device_draft: Optional[dict] = None,
+    ) -> dict:
         cfg = self.cfg
         opts = self._make_opts()
         if prompt_ids is None:
             prompt_ids = self.tokenizer.encode(init_prompt) if init_prompt else None
-        plan = D.plan_window(cfg, opts, prompt_ids, prefix_ids, draft_ids)
+        plan = D.plan_window(cfg, opts, prompt_ids, prefix_ids, draft_ids,
+                             force_draft_bucket=device_draft is not None)
+        cap_slot = D.AUX_TOK + 4  # the exact cap the plan put in the aux bundle
+        plan.aux[cap_slot] = self._density_cap(int(plan.aux[cap_slot]), plan.n_prefix,
+                                               len(audio))
         pt = self.phase_timer
         if pt is not None:
             pt.mark()
         audio_dev, aux_dev = self._upload(audio, plan.aux)
+        if device_draft is not None:
+            D.patch_aux_device_draft(
+                aux_dev.view(1, D.AUX_LEN), device_draft["packed"], device_draft["offset"],
+                device_draft["max_new"], device_draft["row_len"], cfg.eot,
+                force=device_draft["force"], safety=device_draft["safety"])
         if pt is not None:
             sync_device(self.device)
             pt.lap("upload")
@@ -267,21 +341,27 @@ class TorchWhisperASR:
         if pt is not None:
             sync_device(self.device)
             pt.lap("encode")
-        result = D.greedy_decode(
+        handle = D.greedy_decode_dispatch(
             self.model, xa, opts, plan, aux_dev,
             extra_suppress=self._extra_suppress, alignment_heads=self.alignment_heads,
             loop=self.decode_loop, phase_timer=pt,
         )
-        n_frames = min(len(audio) // (2 * 160), cfg.n_audio_ctx)
+        return {"decode_handle": handle, "prefix_ids": prefix_ids, "audio_len": len(audio),
+                "time_offset": time_offset}
+
+    def _transcribe_window_finalize(self, st: dict) -> TranscriptionResult:
+        cfg = self.cfg
+        result = D.greedy_decode_finalize(st["decode_handle"])
+        n_frames = min(st["audio_len"] // (2 * 160), cfg.n_audio_ctx)
         self.counters["ticks"] += 1
-        self.counters["new_tokens"] += int(result.lengths[0]) - len(prefix_ids or [])
+        self.counters["new_tokens"] += int(result.lengths[0]) - len(st["prefix_ids"] or [])
         self.counters["encoded_frames"] += n_frames
-        segs = self._parse_segments(result, n_frames, time_offset)
+        segs = self._parse_segments(result, n_frames, st["time_offset"])
         ids = result.tokens[0][: result.lengths[0]].tolist()
         if ids and ids[-1] == cfg.eot:
             ids = ids[:-1]
-        if pt is not None:
-            pt.lap("host_parse")
+        if self.phase_timer is not None:
+            self.phase_timer.lap("host_parse")
         return TranscriptionResult(segs, tokens=ids)
 
     def _parse_segments(

@@ -18,7 +18,16 @@ and ``DecodeLoop`` runs it K steps at a time between two host checks of the
 end: on the card as a CUDA graph of K steps, captured once per loop shape
 and replayed; on the CPU uncaptured, the plain version of the same loop.
 The prefill reads nothing back, so a window costs at most ⌈(max_new − 1)/K⌉
-host syncs plus the copy of its result.
+host syncs plus one wait for the copy of its result.
+
+``greedy_decode`` is ``greedy_decode_finalize(greedy_decode_dispatch(...))``,
+as in the reference: the dispatch runs the prefill and the loop and starts
+the device→host copy of the packed result on a copy stream, into pinned
+memory, without waiting for it; the finalize waits for that copy and
+unpacks. The pipelined streaming loop (``streaming/online.py``) puts the
+next tick's work between the two, and its async mode reads the previous
+tick's packed result on the card as the next draft
+(``patch_aux_device_draft``).
 """
 
 from __future__ import annotations
@@ -35,7 +44,6 @@ import torch
 from realtime_whisper_asr_tpu_torch.models.whisper.config import WhisperConfig
 from realtime_whisper_asr_tpu_torch.models.whisper.model import DecoderCache, Whisper
 from realtime_whisper_asr_tpu_torch.ops import int4_matmul
-from realtime_whisper_asr_tpu_torch.utils.profiling import sync_device
 
 #: decode steps in one CUDA graph, and between two host checks of the loop's
 #: end. A check idles the card ~0.1 ms, while the steps of the last replay
@@ -180,6 +188,50 @@ def pack_aux(
         aux[AUX_TOK + 5] = len(d)
         aux[AUX_TOK + 6 : AUX_TOK + 6 + len(d)] = d
     return aux
+
+
+def patch_aux_device_draft(
+    aux: torch.Tensor,
+    prev_packed: torch.Tensor,
+    offset: int,
+    prev_max_new: int,
+    prev_row_len: int,
+    eot: int,
+    force: bool = False,
+    safety: int = 4,
+) -> None:
+    """Write the previous tick's sampled tokens, still on the card in its
+    packed result, into the draft slots of this tick's aux bundle ``aux``
+    (B, AUX_LEN), in place: the device-side draft of the async-pipelined
+    streaming loop, with no read back to the host.
+
+    In async mode tick N is dispatched before tick N−1's result reaches the
+    host, so the host can force a prefix only from hypothesis N−2. The draft
+    is hypothesis N−1's continuation beyond this tick's prefix (``offset`` =
+    len(prefix_N) − len(prefix_{N−1}), known on the host), up to and
+    including its first EOT; slots past it are zeroed. The prefill verifies
+    it (lossless: a revised hypothesis rejects from its first mismatch).
+
+    ``force`` (prefix policy "last"): the draft minus its EOT and its last
+    ``safety`` tokens is forced rather than verified, the policy's own
+    semantics applied to hypothesis N−1; the length is then stored negative
+    (``_prefill`` reads the sign)."""
+    b = aux.shape[0]
+    dev = prev_packed.device
+    tokens = prev_packed.reshape(b, prev_row_len)[:, :prev_max_new]  # f32 ids
+    is_eot = tokens == eot
+    any_eot = is_eot.any(dim=1)
+    # the valid length: through the first EOT (argmax returns the first maximum)
+    n_valid = torch.where(any_eot, is_eot.long().argmax(dim=1) + 1, prev_max_new)
+    start = min(max(offset, 0), prev_max_new - 1)
+    slots = torch.arange(DRAFT_MAX, device=dev)
+    draft = tokens.index_select(1, (start + slots).clamp(max=prev_max_new - 1))
+    n_avail = (n_valid - start).clamp(0, DRAFT_MAX)
+    if force:  # never force the EOT or the unstable tail
+        n_avail = (torch.where(any_eot, n_avail - 1, n_avail) - safety).clamp(0, DRAFT_MAX)
+    aux[:, AUX_TOK + 5] = (-n_avail if force else n_avail).to(aux.dtype)
+    aux[:, AUX_TOK + 6 : AUX_TOK + 6 + DRAFT_MAX] = torch.where(
+        slots[None, :] < n_avail[:, None], draft, 0.0)
 
 
 def _unpack_xattn(
@@ -387,9 +439,10 @@ def _prefill(model: Whisper, opts: DecodeOptions, xa: torch.Tensor, aux: torch.T
     n_draft = aux[:, AUX_TOK + 5]
     draft_tok = aux[:, AUX_TOK + 6 : AUX_TOK + 6 + draft_max]
     # pad rows beyond each row's draft with EOT (never matches a real choice,
-    # and keeps the span's token ids in-vocab)
-    draft_tok = torch.where(torch.arange(draft_max, device=dev)[None, :] < n_draft[:, None],
-                            draft_tok, cfg.eot)
+    # and keeps the span's token ids in-vocab); a negative n_draft is a
+    # forced draft of |n_draft| tokens (patch_aux_device_draft)
+    draft_tok = torch.where(
+        torch.arange(draft_max, device=dev)[None, :] < n_draft.abs()[:, None], draft_tok, cfg.eot)
     ts0 = cfg.timestamp_begin
 
     model.fill_cache(xa, st.cache)
@@ -504,9 +557,15 @@ class DecodeLoop:
         # one pool and one capture stream for all graphs: the allocator reuses
         # a block only on the stream that freed it, so a capture on a stream of
         # its own could not reuse the scratch the earlier captures freed
-        self._pool = self._stream = None
+        self._pool = self._stream = self._copy_stream = None
         self.stats = {"captures": 0, "capture_s": 0.0, "graph_bytes": 0, "state_bytes": 0,
                       "replays": 0, "warmup_steps": 0, "eager_steps": 0, "checks": 0}
+
+    def copy_stream(self, device: torch.device) -> torch.cuda.Stream:
+        """The stream the windows' results are copied to the host on."""
+        if self._copy_stream is None:
+            self._copy_stream = torch.cuda.Stream(device)
+        return self._copy_stream
 
     def loop(self, model: Whisper, key: LoopKey, dtype, device, sup_mask: torch.Tensor,
              amask: Optional[torch.Tensor], captured: bool) -> _Loop:
@@ -630,18 +689,129 @@ def plan_window(
     prompt_tokens: Optional[list[int]] = None,
     prefix_tokens: Optional[list[int]] = None,
     draft_tokens: Optional[list[int]] = None,
+    force_draft_bucket: bool = False,
 ) -> WindowPlan:
     """Initial tokens, budget and aux bundle of one window. ``draft_tokens``
     (the previous hypothesis's tail beyond the forced prefix) enables the
-    lossless self-speculative fast path."""
+    lossless self-speculative fast path. ``force_draft_bucket``: the
+    DRAFT_MAX draft span with no host draft, for a caller that writes a
+    device-side draft into the uploaded aux (``patch_aux_device_draft``)."""
     init, sot_index, n_prefix = build_initial_tokens(cfg, opts, prompt_tokens, prefix_tokens)
     ts_in_prefix = [int(t) for t in init[len(init) - n_prefix :] if t >= cfg.timestamp_begin]
     max_new, max_new_cap = plan_decode_budget(cfg, opts, int(init.shape[0]), n_prefix)
+    if force_draft_bucket:
+        draft_tokens = None
     aux = pack_aux(
         init, n_prefix, sot_index, ts_in_prefix[-1] if ts_in_prefix else -1,
         max_new_cap=max_new_cap, draft=np.asarray(draft_tokens or [], np.int32),
     )
-    return WindowPlan(init, n_prefix, max_new, DRAFT_MAX if draft_tokens else 0, aux)
+    draft_max = DRAFT_MAX if (draft_tokens or force_draft_bucket) else 0
+    return WindowPlan(init, n_prefix, max_new, draft_max, aux)
+
+
+@dataclasses.dataclass
+class DecodeHandle:
+    """A dispatched window's decode: its packed result on the card (kept
+    alive: the next async tick reads it as its draft), the pinned host
+    buffer its copy is filling, the events after the loop (``ready``, on the
+    compute stream) and after the copy (``done``, on the copy stream; both
+    None on the CPU, where the result is already on the host), and what the
+    unpack needs."""
+
+    packed: torch.Tensor
+    host: torch.Tensor
+    ready: Optional[torch.cuda.Event]
+    done: Optional[torch.cuda.Event]
+    cfg: WhisperConfig
+    plan: WindowPlan
+    b: int
+    audio_ctx: int
+    capture: bool
+    phase_timer: object = None
+
+
+def _copy_to_host(packed: torch.Tensor, loop: DecodeLoop):
+    """Start the device→host copy of ``packed`` without waiting for it:
+    into pinned memory, on ``loop``'s copy stream, after the compute
+    stream's work so far. -> (host buffer, event after the loop, event after
+    the copy). ``record_stream`` keeps the allocator from reusing ``packed``
+    under the pending copy; the pinned buffer's own allocator records the
+    copy's event and reuses the buffer only after it, however early the
+    handle is dropped. A CPU tensor is the host buffer itself."""
+    if packed.device.type != "cuda":
+        return packed, None, None
+    host = torch.empty(packed.shape, dtype=packed.dtype, pin_memory=True)
+    stream = loop.copy_stream(packed.device)
+    ready = torch.cuda.Event()
+    ready.record(torch.cuda.current_stream(packed.device))
+    stream.wait_event(ready)
+    with torch.cuda.stream(stream):
+        host.copy_(packed, non_blocking=True)
+    packed.record_stream(stream)
+    done = torch.cuda.Event()
+    done.record(stream)
+    return host, ready, done
+
+
+def greedy_decode_dispatch(
+    model: Whisper,
+    xa: torch.Tensor,
+    opts: DecodeOptions,
+    plan: WindowPlan,
+    aux: torch.Tensor,
+    extra_suppress: tuple[int, ...] = (),
+    alignment_heads: Optional[np.ndarray] = None,
+    loop: Optional[DecodeLoop] = None,
+    phase_timer=None,
+) -> DecodeHandle:
+    """The decode of one planned window up to its result's copy: the
+    prefill, the loop (its host checks are the only waits) and the pack,
+    then the copy of the packed result to the host started, not waited for.
+    ``aux`` is ``plan.aux`` on xa's device (the ASR uploads it with the
+    audio). On the card the loop runs as ``loop``'s CUDA graphs (a new
+    ``DecodeLoop`` when None: pass the same one to every window of a model
+    to reuse its graphs), on the CPU uncaptured."""
+    b = xa.shape[0]
+    loop = loop or DecodeLoop()
+    packed = _decode_window(model, opts, xa, aux.reshape(-1, AUX_LEN).expand(b, AUX_LEN), plan,
+                            tuple(extra_suppress), alignment_heads, loop,
+                            captured=xa.device.type == "cuda")
+    host, ready, done = _copy_to_host(packed, loop)
+    return DecodeHandle(packed, host, ready, done, model.cfg, plan, b, xa.shape[1],
+                        opts.word_timestamps, phase_timer)
+
+
+def greedy_decode_finalize(handle: DecodeHandle) -> DecodeResult:
+    """Wait for the dispatched window's result copy (its one wait; nothing
+    else touches the card) and unpack it. Returns tokens = prefix + sampled
+    (xattn rows aligned), so callers parse one transcript regardless of how
+    much was forced.
+
+    ``phase_timer`` (``utils.profiling.PhaseTimer``, from the dispatch), when
+    given, laps ``decode`` once the card has finished the loop and
+    ``download`` after the copy."""
+    pt, plan, b = handle.phase_timer, handle.plan, handle.b
+    if pt is not None and handle.ready is not None:
+        handle.ready.synchronize()
+    if pt is not None:
+        pt.lap("decode")
+    if handle.done is not None:
+        handle.done.synchronize()
+    flat = handle.host.numpy()
+    if pt is not None:
+        pt.lap("download")
+    rows = _unpack_packed_rows(flat, handle.cfg, b, len(plan.init), plan.max_new, handle.capture,
+                               handle.audio_ctx, [plan.prefix] * b)
+    lengths = np.array([r[1] for r in rows], np.int64)
+    sum_lp = np.array([r[2] for r in rows], np.float64)
+    return DecodeResult(
+        tokens=np.stack([r[0] for r in rows]),
+        lengths=lengths,
+        sum_logprob=sum_lp,
+        avg_logprob=sum_lp / np.maximum(lengths - plan.n_prefix, 1),
+        no_speech_prob=np.array([r[3] for r in rows]),
+        xattn=np.stack([r[4] for r in rows]) if handle.capture else None,
+    )
 
 
 def greedy_decode(
@@ -655,39 +825,10 @@ def greedy_decode(
     loop: Optional[DecodeLoop] = None,
     phase_timer=None,
 ) -> DecodeResult:
-    """Run the decode of one planned window and unpack its result with one
-    device→host copy. ``aux`` is ``plan.aux`` on xa's device (the ASR
-    uploads it with the audio). On the card the loop runs as ``loop``'s CUDA
-    graphs (a new ``DecodeLoop`` when None: pass the same one to every window
-    of a model to reuse its graphs), on the CPU uncaptured. Returns tokens =
-    prefix + sampled (xattn rows aligned), so callers parse one transcript
-    regardless of how much was forced.
-
-    ``phase_timer`` (``utils.profiling.PhaseTimer``), when given, laps
-    ``decode`` once the card has finished and ``download`` after the copy."""
-    cfg = model.cfg
-    b, p = xa.shape[0], int(plan.init.shape[0])
-    packed = _decode_window(model, opts, xa, aux.reshape(-1, AUX_LEN).expand(b, AUX_LEN), plan,
-                            tuple(extra_suppress), alignment_heads, loop or DecodeLoop(),
-                            captured=xa.device.type == "cuda")
-    if phase_timer is not None:
-        sync_device(xa.device)
-        phase_timer.lap("decode")
-    flat = packed.cpu().numpy()
-    if phase_timer is not None:
-        phase_timer.lap("download")
-    rows = _unpack_packed_rows(flat, cfg, b, p, plan.max_new, opts.word_timestamps,
-                               int(xa.shape[1]), [plan.prefix] * b)
-    lengths = np.array([r[1] for r in rows], np.int64)
-    sum_lp = np.array([r[2] for r in rows], np.float64)
-    return DecodeResult(
-        tokens=np.stack([r[0] for r in rows]),
-        lengths=lengths,
-        sum_logprob=sum_lp,
-        avg_logprob=sum_lp / np.maximum(lengths - plan.n_prefix, 1),
-        no_speech_prob=np.array([r[3] for r in rows]),
-        xattn=np.stack([r[4] for r in rows]) if opts.word_timestamps else None,
-    )
+    """Run the decode of one planned window and unpack its result:
+    ``greedy_decode_finalize(greedy_decode_dispatch(...))``."""
+    return greedy_decode_finalize(greedy_decode_dispatch(
+        model, xa, opts, plan, aux, extra_suppress, alignment_heads, loop, phase_timer))
 
 
 def _unpack_packed_rows(flat, cfg, b, p, max_new, capture, audio_ctx, prefix_rows):

@@ -17,13 +17,17 @@ processor variants unified behind options:
 StreamState (audio buffer, committed words, offsets, hypothesis state) is
 explicitly serializable for checkpoint/resume (SURVEY.md §5).
 
-Ticks are synchronous: ``process_iter`` runs one ``transcribe`` and applies
-its result before it returns.
+Ticks are synchronous by default: ``process_iter`` runs one ``transcribe``
+and applies its result before it returns. ``pipeline=True`` ("exact") or
+``"async"`` splits each tick into the ASR's ``transcribe_dispatch`` and
+``transcribe_finalize`` and overlaps one tick with the next (see the
+constructor).
 """
 
 from __future__ import annotations
 
 import logging
+import os
 import time as _time
 from typing import Callable, Optional
 
@@ -87,6 +91,7 @@ class OnlineASRProcessor:
         incremental_prefix: bool = True,
         prefix_policy: str = "agree2",  # agree2 | last (SimulStreaming-style)
         prefix_safety_tokens: int = 4,
+        pipeline: Optional[bool] = None,
         clock: Callable[[], float] = _time.monotonic,
     ):
         self.asr = asr
@@ -111,6 +116,32 @@ class OnlineASRProcessor:
             raise ValueError(f"unknown prefix_policy {prefix_policy!r}")
         self.prefix_policy = prefix_policy
         self.prefix_safety_tokens = prefix_safety_tokens
+        # software-pipelined tick loop. Two depths:
+        #
+        #   pipeline=True ("exact"): process_iter() finalizes + applies tick
+        #   N-1, THEN dispatches tick N. The request stream is bit-identical
+        #   to the synchronous loop (tick N is a function of audio ≤ N and
+        #   results ≤ N-1 in both modes); only the emission of each commit
+        #   moves one call later.
+        #
+        #   pipeline="async": process_iter() dispatches tick N FIRST — built
+        #   from audio ≤ N and results ≤ N-2 — then finalizes N-1, so N-1's
+        #   result copy travels while N is dispatched. The previous
+        #   hypothesis, still on the card, rides as N's draft
+        #   (_device_draft). Deterministic (the lag is structural, not
+        #   timing-dependent) but NOT bit-identical to the sync loop —
+        #   hypotheses condition on a one-tick-older prefix.
+        #
+        # RWA_PIPELINE=1|exact|async flips the default.
+        if pipeline is None:
+            env = os.environ.get("RWA_PIPELINE", "").strip().lower()
+            pipeline = {"": False, "0": False, "1": True, "exact": True,
+                        "async": "async"}.get(env, bool(env))
+        if not hasattr(asr, "transcribe_dispatch"):
+            pipeline = False
+        self.pipeline = pipeline
+        self._inflight: Optional[tuple[dict, float, float]] = None
+        self._generation = 0  # bumped by init(); guards cross-reset handles
         self.clock = clock
         self.init()
 
@@ -118,6 +149,11 @@ class OnlineASRProcessor:
 
     def init(self, offset: Optional[float] = None):
         """Reset all streaming state (session start / error recovery)."""
+        # abandon any in-flight pipelined tick: its result belongs to the
+        # state being wiped (its copy finishes into a buffer nobody reads)
+        self._inflight = None
+        self._generation = getattr(self, "_generation", 0) + 1
+        self.last_apply_latency_s = 0.0
         self.audio_buffer = np.array([], dtype=np.float32)
         self.transcript_buffer = HypothesisBuffer(agreement_n=self.agreement_n)
         self.buffer_time_offset = offset if offset is not None else 0.0
@@ -150,6 +186,8 @@ class OnlineASRProcessor:
 
     def process_iter(self) -> tuple[Optional[float], Optional[float], str]:
         """Re-transcribe the buffer, commit agreed words, trim, return commit."""
+        if self.pipeline:
+            return self._process_iter_pipelined()
         t_start = self.clock()
         req = self.prepare_request()
         logger.debug(
@@ -171,6 +209,102 @@ class OnlineASRProcessor:
             return (None, None, "")
         return self.apply_result(res, self.clock() - t_start)
 
+    def _process_iter_pipelined(self) -> tuple[Optional[float], Optional[float], str]:
+        """One software-pipelined tick (see the ``pipeline`` constructor
+        comment).
+
+        exact mode: finalize + apply tick N-1, THEN dispatch tick N — applying
+        the previous result before preparing this tick's request keeps the
+        request stream identical to the synchronous loop, just emitted one
+        call later.
+
+        async mode: dispatch tick N FIRST (from results ≤ N-2), then finalize
+        N-1."""
+        if self.pipeline != "async":
+            out = self._drain_inflight()
+            t_start = self.clock()
+            req = self.prepare_request()
+            try:
+                self._inflight = (
+                    self.asr.transcribe_dispatch(
+                        req["audio"], req["init_prompt"],
+                        req.get("prefix_ids"), req.get("draft_ids"),
+                    ),
+                    t_start,
+                    self.buffer_time_offset,
+                )
+            except Exception:
+                # reference behavior: reset streaming state and continue
+                # (enhanced_asr_processor.py:369-381)
+                logger.exception("pipelined dispatch failed; resetting stream state")
+                self.init(offset=self.buffer_time_offset + len(self.audio_buffer) / SAMPLING_RATE)
+            return out
+        # ---- async: dispatch this tick before the previous one is finalized
+        gen = self._generation
+        t_start = self.clock()
+        req = self.prepare_request()
+        st = None
+        off = self.buffer_time_offset
+        try:
+            st = self.asr.transcribe_dispatch(
+                req["audio"], req["init_prompt"],
+                req.get("prefix_ids"), req.get("draft_ids"),
+                device_draft=self._device_draft(req),
+            )
+        except Exception:
+            logger.exception("pipelined dispatch failed; resetting stream state")
+            self.init(offset=self.buffer_time_offset + len(self.audio_buffer) / SAMPLING_RATE)
+        out = self._drain_inflight()
+        # a reset (dispatch failure above, or inside the drain) invalidates
+        # the just-dispatched handle — its request came from pre-reset state
+        if st is not None and self._generation == gen:
+            self._inflight = (st, t_start, off)
+        return out
+
+    def _device_draft(self, req: dict) -> Optional[dict]:
+        """Async-pipeline device-side draft: point this tick's dispatch at the
+        IN-FLIGHT previous tick's sampled tokens, still on the card, so the
+        prefill verify re-accepts them without the host ever seeing them
+        (decode.patch_aux_device_draft). The host can only force a prefix
+        from hypothesis N-2 here; without this the decode re-generates
+        N-1's tokens step by step. None when there is no in-flight decode
+        handle or the prefix offsets don't line up (first ticks, post-trim
+        resets): the verify is lossless either way."""
+        if self._inflight is None or not req.get("prefix_ids"):
+            return None
+        prev_st = self._inflight[0]
+        h = prev_st.get("decode_handle")
+        if h is None:
+            return None
+        offset = len(req["prefix_ids"]) - len(prev_st.get("prefix_ids") or [])
+        if offset < 0:
+            return None
+        return {
+            "packed": h.packed,
+            "offset": offset,
+            "max_new": h.plan.max_new,
+            "row_len": h.packed.numel() // h.b,
+            # policy "last" forces the previous hypothesis minus the safety
+            # tail (its exact sync-mode semantics, one tick fresher than the
+            # host can see); agree2 stays verify-only (conservative)
+            "force": self.prefix_policy == "last",
+            "safety": self.prefix_safety_tokens,
+        }
+
+    def _drain_inflight(self) -> tuple[Optional[float], Optional[float], str]:
+        """Finalize + apply the in-flight pipelined tick, if any."""
+        if self._inflight is None:
+            return (None, None, "")
+        st, t_dispatch, off = self._inflight
+        self._inflight = None
+        try:
+            res = self.asr.transcribe_finalize(st)
+        except Exception:
+            logger.exception("pipelined finalize failed; resetting stream state")
+            self.init(offset=self.buffer_time_offset + len(self.audio_buffer) / SAMPLING_RATE)
+            return (None, None, "")
+        return self.apply_result(res, self.clock() - t_dispatch, time_offset=off)
+
     def prepare_request(self) -> dict:
         """This tick's transcribe inputs: the buffer, the prompt, and the
         incremental-prefix and draft tokens."""
@@ -189,15 +323,31 @@ class OnlineASRProcessor:
                 req["draft_ids"] = draft
         return req
 
-    def apply_result(self, res, proc_delay_s: float = 0.0):
-        """Finish a tick: hypothesis insert, LocalAgreement commit, trimming."""
+    def apply_result(self, res, proc_delay_s: float = 0.0,
+                     time_offset: Optional[float] = None):
+        """Finish a tick: hypothesis insert, LocalAgreement commit, trimming.
+
+        ``time_offset`` is the buffer_time_offset the request was PREPARED at;
+        it only differs from the current offset in async-pipelined mode, where
+        a trim from applying tick N-1 can land between tick N's dispatch and
+        its apply — the stale result's window-relative times must shift by the
+        offset it was decoded against, and its token history (old-window
+        timestamp tokens) is dropped so the next prefix rebuilds cleanly."""
+        #: dispatch→apply span of the tick that produced the LAST applied
+        #: result — in pipelined mode this is the true chunk→text latency
+        #: (the per-call process_iter time only covers the drain+dispatch)
+        self.last_apply_latency_s = proc_delay_s
+        off = self.buffer_time_offset if time_offset is None else time_offset
+        trimmed_since_dispatch = off != self.buffer_time_offset
         try:
             if self.incremental_prefix:
                 toks = getattr(res, "tokens", None)
-                if toks is not None:
+                if trimmed_since_dispatch:
+                    self._token_history = []
+                elif toks is not None:
                     self._token_history = (self._token_history + [list(toks)])[-2:]
             tsw = self.asr.ts_words(res)
-            self.transcript_buffer.insert(tsw, self.buffer_time_offset)
+            self.transcript_buffer.insert(tsw, off)
             o = self.transcript_buffer.flush()
             self.commited.extend(o)
         except Exception:
@@ -212,11 +362,15 @@ class OnlineASRProcessor:
             if self.buffer_trimming_way == "sentence":
                 self.chunk_completed_sentence()
             else:
-                self.chunk_completed_segment(res)
+                self.chunk_completed_segment(res, time_offset=off)
         return self.to_flush(o)
 
     def finish(self) -> tuple[Optional[float], Optional[float], str]:
         """Flush the uncommitted tail at stream end."""
+        # pipelined mode: the last dispatched tick's commit hasn't been
+        # returned yet — apply it first so the tail flush below sees it, and
+        # merge its committed text into the return (they're contiguous)
+        head = self._drain_inflight() if self._inflight is not None else (None, None, "")
         o = self.transcript_buffer.complete()
         f = self.to_flush(o)
         logger.debug("final non-committed: %s", f)
@@ -226,6 +380,9 @@ class OnlineASRProcessor:
         self.transcript_buffer.buffer = []
         self.buffer_time_offset += len(self.audio_buffer) / SAMPLING_RATE
         self.audio_buffer = np.array([], dtype=np.float32)
+        if head[2]:
+            f = (head[0], f[1] if f[1] is not None else head[1],
+                 (head[2] + self.asr.sep + f[2]) if f[2] else head[2])
         return f
 
     # ---------------------------------------------------------------- trimming
@@ -270,11 +427,13 @@ class OnlineASRProcessor:
             return
         self.chunk_at(sentences[-2][1])
 
-    def chunk_completed_segment(self, res) -> None:
-        """Trim at the last completed-segment boundary before the last commit."""
+    def chunk_completed_segment(self, res, time_offset: Optional[float] = None) -> None:
+        """Trim at the last completed-segment boundary before the last commit.
+        ``time_offset``: the offset ``res`` was decoded against (async-pipelined
+        staleness — see apply_result); defaults to the current offset."""
         if not self.commited:
             return
-        off = self.buffer_time_offset
+        off = self.buffer_time_offset if time_offset is None else time_offset
         ends = self.asr.segments_end_ts(res)
         t = self.commited[-1][1]
         if len(ends) > 1:
@@ -354,6 +513,21 @@ class OnlineASRProcessor:
 
     # ----------------------------------------------------------------- helpers
 
+    def set_pipeline(self, mode) -> tuple[Optional[float], Optional[float], str]:
+        """Switch tick-loop pipelining (False | True/"exact" | "async") at
+        runtime. Any in-flight tick is drained first so the switch is safe
+        mid-session; the drained commit (if any) is returned so the caller
+        can emit it."""
+        mode = {False: False, "": False, "0": False, 0: False, True: True,
+                "1": True, 1: True, "exact": True, "async": "async"}.get(mode, bool(mode))
+        if mode and not hasattr(self.asr, "transcribe_dispatch"):
+            mode = False
+        out = (None, None, "")
+        if self._inflight is not None and mode != self.pipeline:
+            out = self._drain_inflight()
+        self.pipeline = mode
+        return out
+
     def set_agreement_n(self, n: int) -> None:
         self.agreement_n = n
         self.transcript_buffer.set_agreement_n(n)
@@ -368,6 +542,10 @@ class OnlineASRProcessor:
 
     def state_dict(self) -> dict:
         """Serializable streaming state (SURVEY.md §5 checkpoint/resume)."""
+        if self._inflight is not None:
+            # settle the pipelined tick so the snapshot captures its commit
+            # (a resumed session can't fetch this process's device handle)
+            self._drain_inflight()
         tb = self.transcript_buffer
         return {
             "audio_buffer": self.audio_buffer.copy(),
