@@ -58,8 +58,23 @@ Phases, each failing the run with a non-zero exit:
      held;
   9. the fused matmul chain (K3) against its plain version at T = 800,
      D = 1280, k in {1, 8, 32}, one launch per chain, with times; then the
-     port's encoder microbenchmark section (bf16 and int8-all encoder).
-Prints one ``{"kernels": [...]}`` line, then as the last line
+     port's encoder microbenchmark section (bf16 and int8-all encoder);
+ 10. VAC: the golden ``vac`` row at f32 on the card (the Silero-like VAD on
+     the card too), synchronously and with ``pipeline=True``; the device
+     audio ring's grow -> shift -> full on the card, each ring the s16 audio
+     and zero past it, each window ``ring[:bucket]`` bit-equal to the padded
+     whole-window upload; the Silero-like VAD on the card against its CPU
+     run (probabilities within 1e-4, the same events, the smallest margin to
+     a threshold, host us a chunk); each pipelined run of phase 5 prints its
+     upload plans and h2d bytes a window (``UploadProbe``);
+ 11. the headline (``phase_headline``): bench.py's headline loop through the
+     port, large-v3 ``int8-all``, async, VAC with EnergyVAD, 96-token caps,
+     4 tokens a second: the graph path bit-equal to the uncaptured loop at
+     this tier, a warm-up pass and 2 runs of 16 s with K1's launches equal to
+     the windows encoded and no logged error; median RTF, apply latency
+     p50/p95, plan kinds, h2d bytes a window, captures, a PhaseTimer split.
+Prints each phase's seconds, one ``{"kernels": [...]}`` line, then as the
+last line
 ``{"ok": true, "device": {...}}``. Exits non-zero without a result when CUDA
 is absent. Imports nothing of JAX.
 """
@@ -118,6 +133,30 @@ def golden_audio(idx: int, seconds: float = 8.0) -> np.ndarray:
     env = 0.5 * (1 + np.sin(2 * np.pi * rng.uniform(2.0, 4.0) * t))
     out = sig * env + 0.02 * rng.standard_normal(t.shape)
     return (0.4 * out / np.max(np.abs(out))).astype(np.float32)
+
+
+def synthetic_speech(seconds: float, seed: int = 0) -> np.ndarray:
+    """bench.py's headline audio (bench.py:48-55)."""
+    rng = np.random.default_rng(seed)
+    t = np.arange(int(seconds * SR)) / SR
+    f0 = 140 + 40 * np.sin(2 * np.pi * 0.61 * t)
+    sig = sum(np.sin(2 * np.pi * k * f0 * t) / k for k in range(1, 5))
+    env = 0.55 * (1 + np.sin(2 * np.pi * 2.7 * t))  # syllable-ish AM
+    out = sig * env + 0.02 * rng.standard_normal(t.shape)
+    return (0.4 * out / np.max(np.abs(out))).astype(np.float32)
+
+
+def golden_vac_audio() -> np.ndarray:
+    """The golden VAC clip (tools/golden.py:113-123): two synthetic
+    utterances separated by silence, built with the port's synth_speech."""
+    from realtime_whisper_asr_tpu_torch.models.vad.synthetic import synth_speech
+
+    rng = np.random.default_rng(2024)
+    a, _ = synth_speech(rng, 3.0)
+    b, _ = synth_speech(rng, 3.0)
+    gap = np.zeros(int(1.2 * SR), np.float32)
+    lead = np.zeros(int(0.4 * SR), np.float32)
+    return np.concatenate([lead, a, gap, b, gap]).astype(np.float32)
 
 
 def logmel_oracle(audio: np.ndarray, n_mels: int) -> np.ndarray:
@@ -299,12 +338,59 @@ class TickProbe:
                         for w in self.windows)
 
 
-def phase_card() -> str:
+class UploadProbe:
+    """While installed, counts the ASR's upload plans by kind (a grow that
+    carries no words, its buffer already resident, as "resident"), the
+    windows it encodes, and the bytes the whole-window upload that the ring
+    replaced would have sent for them (each window's bucket as s16 words,
+    and the aux bundle). After the block, ``h2d`` holds the change of the
+    ASR's copy counters over it."""
+
+    def __init__(self, asr):
+        self.asr = asr
+        self.kinds: dict[str, int] = {}
+        self.windows = 0
+        self.window_bytes = 0
+
+    def __enter__(self):
+        from realtime_whisper_asr_tpu_torch.models.whisper import decode as D
+
+        asr = self.asr
+        plan_upload, encode = asr._plan_upload, asr._encode_from_buf
+        self._before = dict(asr.counters)
+
+        def counted_plan(key, audio):
+            plan = plan_upload(key, audio)
+            kind = "resident" if plan["kind"] == "grow" and not plan["n_new"] else plan["kind"]
+            self.kinds[kind] = self.kinds.get(kind, 0) + 1
+            return plan
+
+        def counted_encode(n_samples):
+            self.windows += 1
+            self.window_bytes += 2 * asr._window_bucket(n_samples) + 4 * D.AUX_LEN
+            return encode(n_samples)
+
+        asr._plan_upload, asr._encode_from_buf = counted_plan, counted_encode
+        return self
+
+    def __exit__(self, *exc):
+        del self.asr._plan_upload, self.asr._encode_from_buf
+        self.h2d = {k: self.asr.counters[k] - self._before[k]
+                    for k in ("h2d_transfers", "h2d_bytes")}
+
+    def summary(self) -> str:
+        w = max(self.windows, 1)
+        return (f"plans {dict(sorted(self.kinds.items()))}; {self.h2d['h2d_transfers']} "
+                f"h2d copies, h2d_bytes per window {self.h2d['h2d_bytes'] / w:.0f} (the "
+                f"whole-window upload: {self.window_bytes / w:.0f})")
+
+
+def phase_card() -> tuple[str, str]:
     import torch
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-                         capture_output=True, text=True, check=True).stdout.strip()
-    print(smi.splitlines()[0])
+                         capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
+    print(smi)
     # cuBLAS f32 stays IEEE (PyTorch's default, set here for the plain
     # log-mel oracle); cuDNN keeps its TF32 default, as a user's process
     # would: the model's conv stem turns TF32 off for itself
@@ -314,7 +400,7 @@ def phase_card() -> str:
           f"{torch.backends.cuda.matmul.allow_tf32}")
     print(f"torch {torch.__version__}, cuda {torch.version.cuda}, python {sys.version.split()[0]}, "
           f"{torch.cuda.device_count()} card(s): {torch.cuda.get_device_name(0)}")
-    return torch.cuda.get_device_name(0)
+    return torch.cuda.get_device_name(0), smi
 
 
 def phase_build() -> None:
@@ -479,7 +565,8 @@ def run_policy_last(asr, audio: np.ndarray, guard: FailOnLog, pipeline) -> dict:
             "calls": calls, "applies": applies}
 
 
-def phase_golden(guard: FailOnLog) -> None:
+def phase_golden(guard: FailOnLog):
+    """The golden f32 rows on the card -> the test-tiny ASR that ran them."""
     import torch
 
     from realtime_whisper_asr_tpu_torch.asr import TorchWhisperASR
@@ -522,6 +609,142 @@ def phase_golden(guard: FailOnLog) -> None:
     print("golden f32 pipelined rows: the sync, exact and async commits of 3 clips under prefix "
           "policy \"last\" equal pipeline_async.sync_commits, pipeline_exact.commits and "
           "pipeline_async.commits; exact equals sync")
+    return asr
+
+
+def run_vac(asr, vad, guard: FailOnLog, pipeline=False) -> tuple[list[str], list]:
+    """The golden VAC drive (tools/golden.py:177-203): 0.5 s chunks through
+    ``VADIterator(vad)`` and ``OnlineASRProcessor`` trimming at 15 s ->
+    (returned texts, every committed word across the utterances, times
+    rounded to the ms)."""
+    from realtime_whisper_asr_tpu_torch.streaming import (
+        OnlineASRProcessor,
+        VACOnlineASRProcessor,
+        VADIterator,
+    )
+
+    online = OnlineASRProcessor(asr, buffer_trimming=("segment", 15.0), pipeline=pipeline)
+    words = []
+    init = online.init
+
+    def keeping_init(offset=None):  # an utterance start wipes ``commited``
+        words.extend(online.commited)
+        init(offset)
+
+    online.init = keeping_init
+    vac = VACOnlineASRProcessor(
+        online, VADIterator(vad, threshold=0.5, min_silence_duration_ms=500, speech_pad_ms=100),
+        online_chunk_size=0.5)
+    audio = golden_vac_audio()
+    pieces = []
+    for pos in range(0, len(audio), SR // 2):
+        vac.insert_audio_chunk(audio[pos : pos + SR // 2])
+        pieces.append(vac.process_iter()[2])
+    pieces.append(vac.finish()[2])
+    words.extend(online.commited)
+    if guard.records:
+        raise AssertionError(f"VAC loop swallowed an exception: {guard.records}")
+    return ([p for p in pieces if p],
+            [[round(float(b), 3), round(float(e), 3), w] for b, e, w in words])
+
+
+def phase_golden_vac(asr, guard: FailOnLog) -> None:
+    """The golden ``vac`` row at f32 on the card, the Silero-like VAD on the
+    card too: text and commit count equal the recorded row, synchronously
+    and under ``pipeline=True`` (whose committed words equal the
+    synchronous stream's)."""
+    from realtime_whisper_asr_tpu_torch.models.vad import SileroLikeVAD
+
+    with open(os.path.join(GOLDEN, "transcripts.json")) as f:
+        row = json.load(f)["matrix"]["vac"]
+    runs = {mode: run_vac(asr, SileroLikeVAD(device="cuda"), guard, mode)
+            for mode in (False, True)}
+    for mode, (pieces, _) in runs.items():
+        got = {"text": asr.sep.join(pieces).strip(), "commits": len(pieces)}
+        if got != row:
+            raise AssertionError(f"golden vac, pipeline={mode}: {got} != recorded {row}")
+    if runs[True][1] != runs[False][1]:
+        raise AssertionError(f"golden vac: exact committed {runs[True][1]}, sync "
+                             f"{runs[False][1]}")
+    print(f"golden vac at f32 (Silero-like VAD on the card): text and {row['commits']} commits "
+          f"equal the recorded row, synchronously and with pipeline=True (the same "
+          f"{len(runs[False][1])} words)")
+
+
+def phase_ring(asr) -> None:
+    """tests/test_decode.py:582's grow -> shift -> full sequence on the card:
+    after each copy the ring equals the s16-quantized audio and is zero past
+    it, and its first window bucket equals, bit for bit, the padded window
+    the whole-window upload sent."""
+    import torch
+
+    from realtime_whisper_asr_tpu_torch import asr as A
+    from realtime_whisper_asr_tpu_torch.models.whisper import decode as D
+
+    rng = np.random.default_rng(7)
+    a, b, c, d = ((rng.standard_normal(n) * 0.2).astype(np.float32)
+                  for n in (16000, 8000, 4000, 12000))
+    ab = np.concatenate([a, b])
+    steps = (("full", a), ("grow", ab), ("shift", np.concatenate([ab[6000:], c])), ("full", d))
+    key = "chip-smoke-ring"
+    aux = np.zeros(D.AUX_LEN, np.float32)
+    asr.set_active_stream(key)
+    for want, audio in steps:
+        kind = asr._plan_upload(key, audio)["kind"]
+        aux_dev = asr._sync_audio_and_aux(audio, aux)
+        ring = asr._buffers[key][0]
+        q = np.clip(np.round(audio * 32768.0), -32768, 32767) / 32768.0
+        bucket = asr._window_bucket(len(audio))
+        old = A._words_to_samples(torch.from_numpy(A._samples_to_words(
+            asr._pad_window(audio))).cuda())
+        if (kind != want or ring.device.type != asr.device.type or not np.array_equal(
+                ring[: len(audio)].cpu().numpy(), q.astype(np.float32))
+                or bool(ring[len(audio):].any()) or not torch.equal(ring[:bucket], old)
+                or not np.array_equal(aux_dev.cpu().numpy(), aux)):
+            raise AssertionError(f"ring on the card: a {want} plan ({kind}) of {len(audio)} "
+                                 f"samples left another ring or window")
+    asr.drop_stream(key)
+    asr.set_active_stream(None)
+    print(f"ring on the card: {' -> '.join(w for w, _ in steps)}, each ring the s16 audio and "
+          f"zero past it, each window ring[:bucket] bit-equal to the padded upload")
+
+
+def phase_vad() -> None:
+    """The Silero-like VAD on the card against ``device="cpu"`` over the
+    golden VAC clip in 0.5 s chunks through ``VADIterator``: probabilities
+    within 1e-4, the same events. Prints the smallest distance of a
+    probability to the thresholds 0.5 and 0.35, and the host us a chunk."""
+    from realtime_whisper_asr_tpu_torch.models.vad import SileroLikeVAD
+    from realtime_whisper_asr_tpu_torch.streaming import VADIterator
+
+    audio = golden_vac_audio()
+    out = {}
+    for device in ("cuda", "cpu"):
+        vad, probs = SileroLikeVAD(device=device), []
+
+        def recording(frames, _vad=vad, _probs=probs):
+            p = _vad(frames)
+            _probs.extend(p.tolist())
+            return p
+
+        it = VADIterator(recording, threshold=0.5, min_silence_duration_ms=500,
+                         speech_pad_ms=100)
+        events, chunk_us = [], []
+        for pos in range(0, len(audio), SR // 2):
+            t0 = time.perf_counter()
+            events.extend(it(audio[pos : pos + SR // 2]))
+            chunk_us.append(1e6 * (time.perf_counter() - t0))
+        out[device] = (np.asarray(probs), events, float(np.median(chunk_us[1:])))
+    (p_card, ev_card, us_card), (p_cpu, ev_cpu, us_cpu) = out["cuda"], out["cpu"]
+    err = float(np.abs(p_card - p_cpu).max())
+    margin = float(np.min(np.minimum(np.abs(p_card - 0.5), np.abs(p_card - 0.35))))
+    if p_card.shape != p_cpu.shape or err > 1e-4 or ev_card != ev_cpu or len(ev_card) != 4:
+        raise AssertionError(f"VAD on the card: max |p - p_cpu| {err:.3g}, events {ev_card} "
+                             f"against the CPU's {ev_cpu}")
+    print(f"vad: Silero-like VAD on the card, {len(p_card)} frames of the golden VAC clip: max "
+          f"|p_card - p_cpu| {err:.3g} (tolerance 1e-4), events equal {ev_card}; smallest "
+          f"margin to 0.5 / 0.35 {margin:.3g}; host us per 0.5 s chunk (median) card "
+          f"{us_card:.0f}, CPU {us_cpu:.0f}")
 
 
 def phase_full_width(guard: FailOnLog, quantization: str | None = None) -> dict:
@@ -795,7 +1018,7 @@ def phase_pipelined(asr, guard: FailOnLog, label: str, rows: dict, int4: bool) -
             # ---- this stream's run, with the launch counts read around it
             logmel.logmel_launches = 0
             int4_matmul.int4_launches = 0
-            with TickProbe(asr) as probe:
+            with TickProbe(asr) as probe, UploadProbe(asr) as uploads:
                 run = run_policy_last(asr, audio, guard, mode)
             launched = {"logmel": logmel.logmel_launches, "int4": int4_matmul.int4_launches}
             # ----
@@ -832,8 +1055,9 @@ def phase_pipelined(asr, guard: FailOnLog, label: str, rows: dict, int4: bool) -
                   f"{D.MAX_GRAPHS}); device drafts forcing {forced} tokens; logmel launches "
                   f"{launched['logmel']} = windows; K2 launches {launched['int4']} (predicted "
                   f"{predicted}" + (f" = {formula})" if int4 else ")")
-                  + f"; {len(run['commits'])} words committed; host syncs per window "
-                  f"(dispatch + finalize waits / allowed, * = captured in it): {probe.syncs()}")
+                  + f"; {len(run['commits'])} words committed; {uploads.summary()}; host "
+                  f"syncs per window (dispatch + finalize waits / allowed, * = captured in it): "
+                  f"{probe.syncs()}")
             if r and graphs["captures"]:
                 print(f"{what}: captures recur after the first round ({graphs['captures']}): "
                       f"more loop shapes are live than the {len(loop._graphs)} kept")
@@ -925,6 +1149,152 @@ def check_graph_equals_uncaptured(asr, label: str, *clips: np.ndarray) -> None:
                                  f"top-2 logit margin {float(top2[0] - top2[1]):.4g}")
     print(f"{label}: graph path bit-equal to the uncaptured loop on the card: "
           + "; ".join(done))
+
+
+#: bench.py's headline loop (bench.py:577-727) runs 3 runs of 24 s; cut to
+#: 2 runs of 16 s to keep the script inside 1.5x its earlier length
+HEADLINE_SECONDS = 16
+HEADLINE_RUNS = 2
+
+
+def phase_headline(guard: FailOnLog, smi: str) -> int:
+    """bench.py's headline loop through the port at full width: large-v3
+    with seeded random weights in bf16, ``int8-all``, 96-token caps and 4
+    tokens a second; VAC with ``EnergyVAD`` over ``OnlineASRProcessor``
+    (trimming at 15 s, prefix policy "last", async pipelining); the first
+    24 s of ``synthetic_speech(32.0)`` in 1 s chunks fed back to back. First
+    the graph path against the uncaptured loop at this tier, then one
+    warm-up pass and ``HEADLINE_RUNS`` measured runs, each ``vac.init()`` to
+    ``vac.finish()``, with K1's launches set to 0 just before them and read
+    just after (they must equal the windows encoded). Prints the median
+    real-time factor (process_iter and finish over the audio's seconds), the
+    p50/p95 of ``last_apply_latency_s`` over the ticks that committed text,
+    the plan kinds, h2d_bytes per window beside the whole-window upload's,
+    the captures after the warm-up, the ASR's dispatch and finalize host ms,
+    the new tokens and replays, the loop shapes; then a PhaseTimer split of
+    one more pass. -> K1's launches."""
+    import torch
+
+    from realtime_whisper_asr_tpu_torch.asr import TorchWhisperASR
+    from realtime_whisper_asr_tpu_torch.models.vad import EnergyVAD
+    from realtime_whisper_asr_tpu_torch.models.whisper import decode as D
+    from realtime_whisper_asr_tpu_torch.ops import logmel
+    from realtime_whisper_asr_tpu_torch.streaming import (
+        OnlineASRProcessor,
+        VACOnlineASRProcessor,
+        VADIterator,
+    )
+    from realtime_whisper_asr_tpu_torch.utils.profiling import PhaseTimer
+
+    label = "headline large-v3 int8-all"
+    t0 = time.perf_counter()
+    asr = TorchWhisperASR(model_size="large-v3", dtype=torch.bfloat16, device="cuda", seed=0,
+                          quantization="int8-all")
+    asr.transcribe_kargs["max_new_tokens"] = 96
+    asr.transcribe_kargs["max_total_tokens"] = 96
+    asr.max_tokens_per_second = 4.0
+    torch.cuda.synchronize()
+    print(f"{label}: random init and int8 quantization in {time.perf_counter() - t0:.1f} s")
+    audio = synthetic_speech(HEADLINE_SECONDS + 8.0)[: HEADLINE_SECONDS * SR]
+    check_graph_equals_uncaptured(asr, label, audio[: 16 * SR], audio[: 8 * SR])
+    online = OnlineASRProcessor(asr, buffer_trimming=("segment", 15.0), prefix_policy="last",
+                                pipeline="async")
+    vac = VACOnlineASRProcessor(online, VADIterator(EnergyVAD(), min_silence_duration_ms=500),
+                                online_chunk_size=0.5)
+    loop = asr.decode_loop
+    t0 = time.perf_counter()
+    for pos in range(0, len(audio), SR):  # warm-up: the measured audio once
+        vac.insert_audio_chunk(audio[pos : pos + SR])
+        vac.process_iter()
+    vac.finish()
+    torch.cuda.synchronize()
+    print(f"{label}: warm-up pass in {time.perf_counter() - t0:.1f} s, "
+          f"{loop.stats['captures']} captures")
+    stats0, counters0 = dict(loop.stats), dict(asr.counters)
+    shapes, half_ms = set(), {"dispatch": [], "finalize": []}
+    loop_of = loop.loop
+
+    def recording_loop(model, key, *args):
+        shapes.add(key)
+        return loop_of(model, key, *args)
+
+    def timed(fn, name):
+        def call(*args, **kwargs):
+            t0 = time.perf_counter()
+            out = fn(*args, **kwargs)
+            half_ms[name].append(1e3 * (time.perf_counter() - t0))
+            return out
+        return call
+
+    loop.loop = recording_loop
+    asr._transcribe_window_dispatch = timed(asr._transcribe_window_dispatch, "dispatch")
+    asr._transcribe_window_finalize = timed(asr._transcribe_window_finalize, "finalize")
+    rtfs, latency_ms, ticks = [], [], 0
+    # ---- the VAC path, with K1's launch count read around it
+    with UploadProbe(asr) as uploads:
+        logmel.logmel_launches = 0
+        for _ in range(HEADLINE_RUNS):
+            vac.init()
+            busy = 0.0
+            for pos in range(0, len(audio), SR):
+                vac.insert_audio_chunk(audio[pos : pos + SR])
+                t0 = time.perf_counter()
+                _, _, txt = vac.process_iter()
+                busy += time.perf_counter() - t0
+                ticks += 1
+                if txt:
+                    latency_ms.append(1e3 * online.last_apply_latency_s)
+            t0 = time.perf_counter()
+            vac.finish()
+            busy += time.perf_counter() - t0
+            rtfs.append(busy / HEADLINE_SECONDS)
+        launches = logmel.logmel_launches
+    # ----
+    del loop.loop, asr._transcribe_window_dispatch, asr._transcribe_window_finalize
+    graphs = {k: loop.stats[k] - stats0[k] for k in loop.stats}
+    if guard.records:
+        raise AssertionError(f"{label}: the VAC loop swallowed an exception: {guard.records}")
+    if launches == 0 or launches != uploads.windows:
+        raise AssertionError(f"{label}: logmel launched {launches} times for {uploads.windows} "
+                             f"encoded windows")
+    if not latency_ms:
+        raise AssertionError(f"{label}: no tick committed text")
+    p50, p95 = np.percentile(latency_ms, [50, 95])
+    print(f"{label} on {smi}: median RTF {np.median(rtfs):.4f} over {HEADLINE_RUNS} runs of "
+          f"{HEADLINE_SECONDS} s (runs {', '.join(f'{r:.4f}' for r in rtfs)}; process_iter "
+          f"and finish, chunks back to back)")
+    print(f"{label} on {smi}: last_apply_latency_s over the {len(latency_ms)} ticks that "
+          f"committed text: p50 {p50:.1f} ms p95 {p95:.1f} ms")
+    print(f"{label} on {smi}: {ticks} process_iter calls, {uploads.windows} windows encoded "
+          f"= logmel launches {launches}; {uploads.summary()}; "
+          f"{graphs['captures']} captures after the warm-up pass")
+    finalized = asr.counters["ticks"] - counters0["ticks"]
+    new_tokens = asr.counters["new_tokens"] - counters0["new_tokens"]
+    # a tick's phases: the stream once more, the timer syncing at each boundary
+    asr.phase_timer = PhaseTimer()
+    vac.init()
+    for pos in range(0, len(audio), SR):
+        vac.insert_audio_chunk(audio[pos : pos + SR])
+        vac.process_iter()
+    vac.finish()
+    report = asr.phase_timer.report()
+    asr.phase_timer = None
+    if guard.records:
+        raise AssertionError(f"{label}: the VAC loop swallowed an exception: {guard.records}")
+    print(f"{label} on {smi}: PhaseTimer split of a tick, the stream once more (mean ms over "
+          f"{report['decode']['count']} ticks): "
+          + ", ".join(f"{k} {v['mean_ms']}" for k, v in report.items()))
+    print(f"{label} on {smi}: where a run's time goes: ASR dispatch p50 "
+          f"{np.median(half_ms['dispatch']):.1f} ms (sum {sum(half_ms['dispatch']) / 1e3:.2f} "
+          f"s), finalize p50 {np.median(half_ms['finalize']):.2f} ms; "
+          f"{new_tokens / max(finalized, 1):.1f} "
+          f"new tokens a window over the {finalized} finalized; {graphs['replays']} replays of {loop.k} steps, {graphs['warmup_steps']} "
+          f"warm-up steps, {graphs['captures']} captures in {graphs['capture_s']:.2f} s; "
+          f"{len(shapes)} loop shapes used (window, prompt, bound, cache, draft slots: "
+          + ", ".join(sorted({f"{k.audio_ctx}/{k.p}/{k.max_new}/{k.cache_len}/{k.draft_max}"
+                              for k in shapes}))
+          + f"; {D.MAX_GRAPHS} kept)")
+    return launches
 
 
 def _bound(nbytes: float, ops: float, peak_ops: float) -> tuple[float, str]:
@@ -1238,10 +1608,10 @@ def _forced_logits(asr, audio: np.ndarray, tokens: list[int]) -> np.ndarray:
     from realtime_whisper_asr_tpu_torch.models.whisper import decode as D
 
     plan = D.plan_window(asr.cfg, asr._make_opts())
-    audio_dev, _ = asr._upload(audio, plan.aux)
+    asr._sync_audio_and_aux(audio, plan.aux)
     p = len(plan.init)
     with torch.inference_mode():
-        xa = asr._logmel_encode(audio_dev)
+        xa = asr._encode_from_buf(len(audio))
         seq = torch.from_numpy(np.concatenate([plan.init, tokens]).astype(np.int64))
         logits, _ = asr.model.decode_span(seq[None].to(xa.device), 0,
                                           asr.model.init_cache(xa, text_ctx=128))
@@ -1324,21 +1694,36 @@ def main() -> int:
     guard = FailOnLog()
     logging.getLogger().addHandler(guard)
     t_start = time.perf_counter()
-    kind = phase_card()
-    phase_build()
-    logmel_rows = phase_logmel()
-    int4_rows = phase_int4()
-    linear_rows = phase_int4_linear()
-    phase_int4_linear_kernels()
-    chain_rows = phase_chain()
-    phase_golden(guard)
-    near_ties = phase_golden_quant()  # printed again at the end
+    seconds: dict[str, float] = {}
+
+    def run(name, fn, *args):
+        t0 = time.perf_counter()
+        out = fn(*args)
+        seconds[name] = round(time.perf_counter() - t0, 1)
+        return out
+
+    kind, smi = run("card", phase_card)
+    run("build", phase_build)
+    logmel_rows = run("logmel", phase_logmel)
+    int4_rows = run("int4", phase_int4)
+    linear_rows = run("int4_linear", phase_int4_linear)
+    run("int4_linear_kernels", phase_int4_linear_kernels)
+    chain_rows = run("chain", phase_chain)
+    golden_asr = run("golden", phase_golden, guard)
+    run("golden_vac", phase_golden_vac, golden_asr, guard)
+    run("ring", phase_ring, golden_asr)
+    del golden_asr
+    near_ties = run("golden_quant", phase_golden_quant)  # printed again at the end
+    run("vad", phase_vad)
     launches = {}
     for tier in (None, "int4"):
-        launches[tier] = phase_full_width(guard, tier)
+        launches[tier] = run(f"full_width {tier or 'bf16'}", phase_full_width, guard, tier)
         gc.collect()
         torch.cuda.empty_cache()
-    chain_launches = phase_microbench()
+    run("headline", phase_headline, guard, smi)
+    gc.collect()
+    torch.cuda.empty_cache()
+    chain_launches = run("microbench", phase_microbench)
     src = "realtime_whisper_asr_tpu_torch/csrc/"
     entries = []
     for name, source, replaces, count, rows, main_row in (
@@ -1361,6 +1746,7 @@ def main() -> int:
         })
     for msg in near_ties:
         print(msg)
+    print(f"phase seconds: {seconds}")
     print(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": entries}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

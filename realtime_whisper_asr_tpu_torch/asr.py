@@ -9,11 +9,13 @@ contract):
     segments_end_ts(segments) -> [end, ...]
     set_translate_task(); use_vad(); attribute ``sep``
 
-Each window (tick) is: one host→device copy of the padded window and the
-decode's aux bundle, from pinned memory → log-mel (the hand-written CUDA
-kernel) → encoder → greedy decode with cross-attention capture (on the card
-its loop replays CUDA graphs, ``decode.DecodeLoop``) → one device→host copy
-of the packed result → segments with DTW word timestamps.
+Each window (tick) is: one host→device copy, from pinned memory, of the
+window's new audio and the decode's aux bundle, the audio applied to the
+stream's device audio ring (grow, shift or full: see ``_plan_upload``) →
+log-mel (the hand-written CUDA kernel) of the ring's first window bucket →
+encoder → greedy decode with cross-attention capture (on the card its loop
+replays CUDA graphs, ``decode.DecodeLoop``) → one device→host copy of the
+packed result → segments with DTW word timestamps.
 
 A window is ``transcribe_dispatch`` (everything up to the start of the
 result's copy) then ``transcribe_finalize`` (the wait for that copy and the
@@ -30,6 +32,7 @@ from typing import Optional, Sequence
 
 import numpy as np
 import torch
+from numpy.lib.stride_tricks import sliding_window_view
 
 from realtime_whisper_asr_tpu_torch.device import resolve_device
 from realtime_whisper_asr_tpu_torch.models.whisper import decode as D
@@ -58,6 +61,20 @@ def _samples_to_words(audio: np.ndarray) -> np.ndarray:
 
 def _words_to_samples(words: torch.Tensor) -> torch.Tensor:
     return words.view(torch.int16).float() / 32768.0
+
+
+def _ring_shift_write(ring: torch.Tensor, samples: torch.Tensor, k: int,
+                      n_remain: int) -> torch.Tensor:
+    """A fresh ring: ``ring`` with its first ``k`` samples dropped (front
+    trim: the retained audio is already on the device), zero past the
+    ``n_remain`` retained samples, then ``samples`` written at
+    ``n_remain``. A gather with clamped indices and a select, as the JAX
+    package's ``_buf_shift_write``: no tensor is read and written at once."""
+    idx = torch.arange(ring.shape[0], device=ring.device)
+    src = ring[torch.clamp(idx + k, max=ring.shape[0] - 1)]
+    out = torch.where(idx < n_remain, src, 0.0)
+    out.narrow(0, n_remain, samples.shape[0]).copy_(samples)
+    return out
 
 
 @dataclasses.dataclass
@@ -162,9 +179,16 @@ class TorchWhisperASR:
         #: decode, download and host_parse. Diagnostic mode: the waits
         #: serialize work the host otherwise queues ahead.
         self.phase_timer = None
-        #: one tick (window) = one h2d transfer, one log-mel launch, one encode
+        #: one tick (window) = one h2d transfer, one log-mel launch, one
+        #: encode; a prefetch (``prefetch_audio``) is one h2d transfer more
         self.counters = {"new_tokens": 0, "ticks": 0, "encoded_frames": 0,
                          "h2d_transfers": 0, "h2d_bytes": 0}
+        #: per-stream device audio rings: key -> (ring (_CAP,) f32 on the
+        #: device, the f32 audio it holds as the host last sent it). The ring
+        #: is zero past that audio, so its first window bucket is the padded
+        #: window.
+        self._buffers: dict = {}
+        self._active_stream = None
         non_speech = getattr(self.tokenizer, "non_speech_ids", None)
         self._extra_suppress = tuple(non_speech()) if non_speech else ()
 
@@ -184,18 +208,162 @@ class TorchWhisperASR:
         out[: len(audio)] = audio
         return out
 
-    def _upload(self, audio: np.ndarray, aux: np.ndarray):
-        """ONE host→device copy, from pinned memory, of the padded window (as
-        s16 words) and the decode's aux bundle -> (audio f32, aux) on the
-        device."""
-        words = _samples_to_words(self._pad_window(audio))
-        host = torch.from_numpy(np.concatenate([words, aux]))
+    # ------------------------------------------------------ device audio ring
+
+    #: upload chunk buckets (samples): the new audio suffix a plan carries
+    _CHUNK_BUCKETS = (16000, 64000, WINDOW_SAMPLES)
+    _CAP = WINDOW_SAMPLES + 64000  # device ring capacity (window + append slack)
+
+    def _find_shift(self, mirror: np.ndarray, audio: np.ndarray) -> Optional[int]:
+        """Find k > 0 with mirror[k:] == audio[:len(mirror)-k] (front trim).
+
+        Any verified k is correct (content equality is the only requirement),
+        so periodic audio with several candidates is fine. Bounded work: an
+        8-sample signature scan + at most a few full verifications.
+        """
+        n_old = len(mirror)
+        if n_old < 16 or len(audio) < 8:
+            return None
+        sig = audio[:8]
+        wins = sliding_window_view(mirror, 8)
+        cand = np.flatnonzero((wins == sig).all(axis=1))
+        checked = 0
+        for k in cand:
+            k = int(k)
+            if k == 0:
+                continue
+            m = n_old - k
+            if len(audio) < m or len(audio) - m > self._CHUNK_BUCKETS[-1]:
+                continue
+            if np.array_equal(audio[:m], mirror[k:]):
+                return k
+            checked += 1
+            if checked >= 4:
+                break
+        return None
+
+    def _plan_upload(self, key, audio: np.ndarray) -> dict:
+        """Decide grow / shift / full upload for one stream's buffer.
+
+        - grow: the previous window is a prefix — upload only the bucketed
+          new suffix, written into the ring in place;
+        - shift: the previous window was front-trimmed (buffer trimming,
+          streaming/online.py) — the retained audio is already on the device;
+          shift it there and upload only the new suffix;
+        - full: anything else (stream reset, utterance re-init).
+
+        Payloads are s16 words (2 samples a word; ``_samples_to_words``).
+        The plan carries the host mirror (the f32 audio) for the next
+        tick's equality checks. A write that would run past ``_CAP`` makes
+        the plan full; no write is clamped.
+        """
+        audio = np.asarray(audio, np.float32)[:WINDOW_SAMPLES]
+        ring, mirror = self._buffers.get(key, (None, np.zeros(0, np.float32)))
+        n_old = len(mirror)
+
+        def _suffix_plan(kind: str, n_keep: int, shift_k: int = 0):
+            new = audio[n_keep:]
+            if kind == "grow" and not len(new):
+                # buffer already resident (a prefetch_audio upload landed it):
+                # no words ride the copy and no device write happens
+                return {"kind": kind, "words": np.zeros(0, np.float32),
+                        "pos": n_keep, "shift_k": 0, "n_new": 0, "mirror": audio}
+            cb = next((b for b in self._CHUNK_BUCKETS if len(new) <= b), None)
+            if cb is None or n_keep + cb > self._CAP:
+                return None
+            payload = np.zeros(cb, np.float32)
+            payload[: len(new)] = new
+            return {"kind": kind, "words": _samples_to_words(payload),
+                    "pos": n_keep, "shift_k": shift_k, "n_new": len(new),
+                    "mirror": audio}
+
+        if ring is not None and len(audio) >= n_old and np.array_equal(audio[:n_old], mirror):
+            plan = _suffix_plan("grow", n_old)
+            if plan is not None:
+                return plan
+        if ring is not None:
+            k = self._find_shift(mirror, audio)
+            if k is not None:
+                plan = _suffix_plan("shift", n_old - k, shift_k=k)
+                if plan is not None:
+                    return plan
+        # full replace: the audio padded to the smallest chunk bucket that
+        # fits (an utterance start carries ~1-2 s), written into a zeroed ring
+        fb = next((b for b in self._CHUNK_BUCKETS if len(audio) <= b), self._CAP)
+        full = np.zeros(min(fb, self._CAP), np.float32)
+        full[: len(audio)] = audio
+        return {"kind": "full", "words": _samples_to_words(full), "pos": None,
+                "shift_k": 0, "n_new": len(audio), "mirror": audio}
+
+    def _sync_many(self, keys, audios, aux_rows: np.ndarray) -> torch.Tensor:
+        """ONE host→device copy for B streams' new audio and all aux rows ->
+        the (B, AUX_LEN) aux rows on the device."""
+        plans = [self._plan_upload(k, a) for k, a in zip(keys, audios)]
+        return self._upload_and_apply(keys, plans, aux_rows).view(aux_rows.shape)
+
+    @torch.inference_mode()
+    def _upload_and_apply(self, keys, plans: list[dict], aux_rows) -> torch.Tensor:
+        """ONE copy, from pinned memory, of the plans' words and the aux rows
+        (None: none), then each plan applied to its stream's ring on the
+        copy's stream -> the aux words on the device. The write positions
+        and shift amounts are host integers the slices take directly.
+
+        The caching host allocator records the copy's event on the pinned
+        block, so the block is not reused before the copy has read it."""
+        aux_flat = (np.zeros(0, np.float32) if aux_rows is None
+                    else np.ascontiguousarray(aux_rows, np.float32).reshape(-1))
+        host = torch.from_numpy(np.concatenate([p["words"] for p in plans] + [aux_flat]))
         if self.device.type == "cuda":
             host = host.pin_memory()
-        dev = host.to(self.device, non_blocking=True)
+        up = host.to(self.device, non_blocking=True)
         self.counters["h2d_transfers"] += 1
         self.counters["h2d_bytes"] += host.numel() * 4
-        return _words_to_samples(dev[: len(words)]), dev[len(words):]
+        off = 0
+        for key, plan in zip(keys, plans):
+            n = len(plan["words"])
+            samples = _words_to_samples(up[off : off + n])
+            off += n
+            if plan["kind"] == "full":
+                ring = torch.nn.functional.pad(samples, (0, self._CAP - samples.shape[0]))
+            elif plan["kind"] == "shift":
+                ring = _ring_shift_write(self._buffers[key][0], samples, plan["shift_k"],
+                                         plan["pos"])
+            else:  # grow: in place (a tick already queued reads the ring first)
+                ring = self._buffers[key][0]
+                if n:  # nothing new: a prefetch already landed the buffer
+                    ring.narrow(0, plan["pos"], samples.shape[0]).copy_(samples)
+            self._buffers[key] = (ring, plan["mirror"].copy())
+        return up[off:]
+
+    def prefetch_audio(self, audio: np.ndarray, key=None) -> bool:
+        """Upload a stream's current buffer now, off the tick's path: called
+        when audio is inserted (streaming/online.py), so the next tick's
+        copy carries only the aux bundle. Returns True when a copy was made,
+        False when the buffer was already resident. Safe to call any number
+        of times between ticks: each call is incremental."""
+        key = self._active_stream if key is None else key
+        plan = self._plan_upload(key, np.asarray(audio, np.float32))
+        if plan["kind"] == "grow" and plan["n_new"] == 0:
+            return False
+        self._upload_and_apply([key], [plan], None)
+        return True
+
+    def _sync_audio_and_aux(self, audio: np.ndarray, aux_np: np.ndarray) -> torch.Tensor:
+        """Single-stream tick: one copy (see ``_sync_many``) -> aux on the device."""
+        return self._sync_many([self._active_stream], [audio], aux_np.reshape(1, -1)).view(-1)
+
+    def set_active_stream(self, key) -> None:
+        """Select which per-stream device ring ``transcribe`` uses."""
+        self._active_stream = key
+
+    def drop_stream(self, key) -> None:
+        self._buffers.pop(key, None)
+
+    def _encode_from_buf(self, n_samples: int) -> torch.Tensor:
+        """Log-mel and encoder over the active stream's ring, its first
+        window bucket for ``n_samples`` of audio (zero past the audio)."""
+        ring = self._buffers[self._active_stream][0]
+        return self._logmel_encode(ring[: self._window_bucket(n_samples)])
 
     def _logmel_encode(self, audio: torch.Tensor) -> torch.Tensor:
         """(n,) f32 window on the device -> encoder output (1, n/320, d)."""
@@ -269,11 +437,14 @@ class TorchWhisperASR:
         init_prompt: str = "",
         prefix_ids: Optional[list[int]] = None,
         draft_ids: Optional[list[int]] = None,
+        key=None,
         device_draft: Optional[dict] = None,
     ) -> dict:
         """The first half of ``transcribe`` for a window of ≤ 30 s: plan,
         upload, log-mel, encode and the decode up to the start of its
         result's copy. Returns a handle for ``transcribe_finalize``.
+        ``key`` selects the stream's device ring for this call (the active
+        stream when None).
 
         ``device_draft`` (the async-pipelined streaming loop): ``{"packed",
         "offset", "max_new", "row_len", "force", "safety"}``, the previous
@@ -284,8 +455,14 @@ class TorchWhisperASR:
         audio = np.asarray(audio, np.float32)
         if len(audio) > WINDOW_SAMPLES:
             return {"sync_result": self.transcribe(audio, init_prompt, prefix_ids, draft_ids)}
-        return self._transcribe_window_dispatch(audio, init_prompt, 0.0, prefix_ids, draft_ids,
-                                                device_draft=device_draft)
+        prev = self._active_stream
+        if key is not None:
+            self._active_stream = key
+        try:
+            return self._transcribe_window_dispatch(audio, init_prompt, 0.0, prefix_ids,
+                                                    draft_ids, device_draft=device_draft)
+        finally:
+            self._active_stream = prev
 
     def transcribe_finalize(self, st: dict) -> TranscriptionResult:
         """The second half of ``transcribe``: wait for the result's copy,
@@ -328,7 +505,7 @@ class TorchWhisperASR:
         pt = self.phase_timer
         if pt is not None:
             pt.mark()
-        audio_dev, aux_dev = self._upload(audio, plan.aux)
+        aux_dev = self._sync_audio_and_aux(audio, plan.aux)
         if device_draft is not None:
             D.patch_aux_device_draft(
                 aux_dev.view(1, D.AUX_LEN), device_draft["packed"], device_draft["offset"],
@@ -337,7 +514,7 @@ class TorchWhisperASR:
         if pt is not None:
             sync_device(self.device)
             pt.lap("upload")
-        xa = self._logmel_encode(audio_dev)
+        xa = self._encode_from_buf(len(audio))
         if pt is not None:
             sync_device(self.device)
             pt.lap("encode")

@@ -2,6 +2,8 @@
 
 from __future__ import annotations
 
+import contextlib
+
 import torch
 
 
@@ -14,3 +16,18 @@ def resolve_device(device="cuda") -> torch.device:
         raise RuntimeError("CUDA is not available on this host; pass device='cpu' "
                            "to run the port on the CPU")
     return dev
+
+
+@contextlib.contextmanager
+def no_tf32_cudnn():
+    """cuDNN runs f32 convolutions and LSTMs in TF32 unless told otherwise
+    (PyTorch's default); inside this block they keep IEEE f32, so an f32
+    module computes the function the parity checks hold against the JAX
+    package, whatever the process-wide setting. cuBLAS f32 matmuls are IEEE
+    by PyTorch's default."""
+    prev = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.allow_tf32 = prev

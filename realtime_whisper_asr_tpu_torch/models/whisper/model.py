@@ -25,7 +25,6 @@ encoder output (B, T/2, d), caches (L, B, H, T, Dh), logits f32.
 
 from __future__ import annotations
 
-import contextlib
 import dataclasses
 import math
 from typing import Optional
@@ -35,7 +34,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from realtime_whisper_asr_tpu_torch.device import resolve_device
+from realtime_whisper_asr_tpu_torch.device import no_tf32_cudnn, resolve_device
 from realtime_whisper_asr_tpu_torch.models.whisper.config import WhisperConfig
 from realtime_whisper_asr_tpu_torch.models.whisper.quant import int4_groups, tier_layout
 from realtime_whisper_asr_tpu_torch.ops.int4_matmul import int4_linear
@@ -83,20 +82,6 @@ class Conv1d(nn.Conv1d):
         if x.dtype == torch.float32 or self.bias is None:
             return super().forward(x)
         return self._conv_forward(x, self.weight, None) + self.bias[:, None]
-
-
-@contextlib.contextmanager
-def _no_tf32_conv():
-    """cuDNN runs f32 convolutions in TF32 unless told otherwise (PyTorch's
-    default); the stem keeps IEEE f32 so an f32 model computes the function
-    the parity checks hold against the JAX package, whatever the process-wide
-    setting. cuBLAS f32 matmuls are IEEE by PyTorch's default."""
-    prev = torch.backends.cudnn.allow_tf32
-    torch.backends.cudnn.allow_tf32 = False
-    try:
-        yield
-    finally:
-        torch.backends.cudnn.allow_tf32 = prev
 
 
 class _QuantLinear(nn.Module):
@@ -283,7 +268,7 @@ class AudioEncoder(nn.Module):
         """Conv stem (k3 s1 + k3 s2, exact GELU) + positional prefix: a
         window shorter than 30 s (the 8/16 s buckets) takes the first T/2
         rows of the positional table. Convolutions in IEEE f32 when f32."""
-        with _no_tf32_conv():
+        with no_tf32_cudnn():
             x = _gelu(self.conv1(mel.transpose(1, 2)))
             x = _gelu(self.conv2(x)).transpose(1, 2)
         return x + self.pos_emb[: x.shape[1]].to(x.dtype)

@@ -143,6 +143,11 @@ class OnlineASRProcessor:
         self._inflight: Optional[tuple[dict, float, float]] = None
         self._generation = 0  # bumped by init(); guards cross-reset handles
         self.clock = clock
+        #: the ASR's device audio ring this stream's audio goes to (its
+        #: prefetches and dispatches). None = the ASR's active stream
+        #: (single-session use); a multi-stream caller sets a key per
+        #: processor so a prefetch never lands in another stream's ring.
+        self.stream_key = None
         self.init()
 
     # ---------------------------------------------------------------- protocol
@@ -163,6 +168,15 @@ class OnlineASRProcessor:
 
     def insert_audio_chunk(self, audio: np.ndarray):
         self.audio_buffer = np.append(self.audio_buffer, np.asarray(audio, np.float32))
+        # upload prefetch: land the grown buffer in the device ring now,
+        # between ticks, so the next tick's upload carries only the aux
+        # bundle (asr.prefetch_audio)
+        prefetch = getattr(self.asr, "prefetch_audio", None)
+        if prefetch is not None:
+            try:
+                prefetch(self.audio_buffer, key=self.stream_key)
+            except Exception:  # never let a prefetch break the insert path
+                logger.exception("audio prefetch failed (tick upload will cover it)")
 
     def prompt(self) -> tuple[str, str]:
         """(prompt, non_prompt): committed text scrolled out of the buffer, cut
@@ -229,6 +243,7 @@ class OnlineASRProcessor:
                     self.asr.transcribe_dispatch(
                         req["audio"], req["init_prompt"],
                         req.get("prefix_ids"), req.get("draft_ids"),
+                        key=self.stream_key,
                     ),
                     t_start,
                     self.buffer_time_offset,
@@ -249,6 +264,7 @@ class OnlineASRProcessor:
             st = self.asr.transcribe_dispatch(
                 req["audio"], req["init_prompt"],
                 req.get("prefix_ids"), req.get("draft_ids"),
+                key=self.stream_key,
                 device_draft=self._device_draft(req),
             )
         except Exception:
@@ -304,6 +320,9 @@ class OnlineASRProcessor:
             self.init(offset=self.buffer_time_offset + len(self.audio_buffer) / SAMPLING_RATE)
             return (None, None, "")
         return self.apply_result(res, self.clock() - t_dispatch, time_offset=off)
+
+    def wants_tick(self) -> bool:
+        return len(self.audio_buffer) > 0
 
     def prepare_request(self) -> dict:
         """This tick's transcribe inputs: the buffer, the prompt, and the
@@ -364,6 +383,12 @@ class OnlineASRProcessor:
             else:
                 self.chunk_completed_segment(res, time_offset=off)
         return self.to_flush(o)
+
+    def finish_all(self) -> list[tuple[Optional[float], Optional[float], str]]:
+        """The drain protocol of ``VACOnlineASRProcessor.finish_all``: this
+        processor stages no utterances, so one flush."""
+        ret = self.finish()
+        return [ret] if ret[2] else []
 
     def finish(self) -> tuple[Optional[float], Optional[float], str]:
         """Flush the uncommitted tail at stream end."""

@@ -6,7 +6,8 @@
 - Entry points default to CUDA and raise on a host without it.
 - The kernel wrappers (log-mel, packed-int4 matmul, matmul chain), the int8
   product and the quantized modules' dispatch have no ``try``/``except`` that
-  could fall back from a kernel to its plain version.
+  could fall back from a kernel to its plain version; nor have the VAD and
+  the device audio ring one that could fall back to the CPU.
 """
 
 import ast
@@ -18,6 +19,7 @@ import pytest
 import torch
 
 from realtime_whisper_asr_tpu_torch import asr as asr_mod
+from realtime_whisper_asr_tpu_torch.models.vad import silero_like
 from realtime_whisper_asr_tpu_torch.models.whisper import model as model_mod
 from realtime_whisper_asr_tpu_torch.models.whisper.config import get_config
 from realtime_whisper_asr_tpu_torch.ops import int4_matmul, int8_matmul, logmel, matmul_chain
@@ -55,6 +57,22 @@ def test_entry_points_refuse_missing_cuda(monkeypatch):
         asr_mod.TorchWhisperASR(cfg=cfg)
     with pytest.raises(RuntimeError, match="CUDA"):
         model_mod.init_params(cfg, torch.Generator())
+    with pytest.raises(RuntimeError, match="CUDA"):
+        silero_like.SileroLikeVAD()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        silero_like.SileroLikeNet()
+
+
+def test_vad_and_ring_have_no_fallback():
+    with open(silero_like.__file__) as f:
+        assert not [n for n in ast.walk(ast.parse(f.read())) if isinstance(n, ast.Try)]
+    with open(asr_mod.__file__) as f:
+        tree = ast.parse(f.read())
+    names = {"_ring_shift_write", "_find_shift", "_plan_upload", "_sync_many",
+             "_upload_and_apply", "prefetch_audio", "_sync_audio_and_aux", "_encode_from_buf"}
+    nodes = [n for n in ast.walk(tree) if getattr(n, "name", None) in names]
+    assert len(nodes) == len(names)
+    assert not [n for node in nodes for n in ast.walk(node) if isinstance(n, ast.Try)]
 
 
 def test_logmel_wrapper_has_no_fallback():

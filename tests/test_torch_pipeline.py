@@ -428,7 +428,7 @@ class DispatchingFakeASR:
                 if b >= t0 - 1e-6 and e <= t1 + 1e-6]
 
     def transcribe_dispatch(self, audio, init_prompt="", prefix_ids=None, draft_ids=None,
-                            device_draft=None):
+                            key=None, device_draft=None):
         return {"res": self.transcribe(audio, init_prompt)}
 
     def transcribe_finalize(self, st):
@@ -523,13 +523,13 @@ def test_dispatch_applies_the_density_cap(asr, monkeypatch):
     """The uploaded aux is the plan's when the rate is None; with a rate its
     cap slot holds the density cap, and the decode stops there."""
     uploads = []
-    upload = asr._upload
+    upload = asr._sync_audio_and_aux
 
     def recording(audio, aux):
         uploads.append(aux.copy())
         return upload(audio, aux)
 
-    monkeypatch.setattr(asr, "_upload", recording)
+    monkeypatch.setattr(asr, "_sync_audio_and_aux", recording)
     audio = golden_audio(2, seconds=2.0)
     prefix = asr.transcribe(audio).tokens[:3]
     res = asr.transcribe(audio, prefix_ids=prefix)
