@@ -40,7 +40,8 @@ Phases, each failing the run with a non-zero exit:
      above;
   6. the packed-int4 kernel family (K2) against its plain versions, bit for
      bit, at the large-v3 decode shapes (M = 1), its prefill spans (M = 2,
-     4, 8 and 24), the 16 s cross-K/V shape (M = 800) and the test-tiny
+     4, 8 and 24), the 16 s cross-K/V shape (M = 800), the serving phase's
+     batched spans and cross-K/V (M = 64, 1152, 3200) and the test-tiny
      shapes, with times: ``int4_matmul`` (int8 in, f32 out) and
      ``int4_linear`` (x in bf16 and f32, with and without bias); then a
      profiler count of the kernels one large-v3 ``Int4Linear``
@@ -72,7 +73,20 @@ Phases, each failing the run with a non-zero exit:
      4 tokens a second: the graph path bit-equal to the uncaptured loop at
      this tier, a warm-up pass and 2 runs of 16 s with K1's launches equal to
      the windows encoded and no logged error; median RTF, apply latency
-     p50/p95, plan kinds, h2d bytes a window, captures, a PhaseTimer split.
+     p50/p95, plan kinds, h2d bytes a window, captures, a PhaseTimer split;
+ 12. batched multi-stream serving (``phase_serving``): the port's
+     StreamServer on the golden f32 weights commits on the card what it
+     commits on the CPU (3 streams, batched and pipelined), and
+     ``greedy_decode_batch`` equals each row's own decode; at large-v3
+     ``int8-all`` a batch of 4 rows at different states is bit-equal through
+     the graph path and the uncaptured loop; bench.py's ``BENCH_STREAMS``
+     loop (no VAD, policy "last", 96-token caps, 16 s a stream in 1 s
+     chunks, a warm-up pass, then a timed one) at N = 8 and N = 1:
+     aggregate RTF, ticks, new tokens, no group failure, batch sizes,
+     dispatch ms, captures, K1 launches = rows encoded, peak memory per row
+     beside ``_hbm_safe_batch``'s estimate, the decode's kernel split at
+     B = 8 and 1; the int4 tier at N = 8 over 8 s with K2's launches equal
+     to the prediction and every K2 path held in phase 6.
 Prints each phase's seconds, one ``{"kernels": [...]}`` line, then as the
 last line
 ``{"ok": true, "device": {...}}``. Exits non-zero without a result when CUDA
@@ -936,11 +950,12 @@ def phase_full_width(guard: FailOnLog, quantization: str | None = None) -> dict:
 
 
 def check_k2_launches(label: str, asr, rows: dict, graphs: dict, launched: int,
-                      int4: bool) -> tuple[int, str]:
+                      int4: bool, steps: list | None = None) -> tuple[int, str]:
     """K2's launches in a run against the count the model's structure
     predicts from the run's encoded windows, prefill spans (``rows``) and
-    loop steps (``graphs``: warm-up steps, and K per replay); for the int4
-    tiers, every K2 code path the run took must be among those the K2
+    loop steps (``graphs``: warm-up steps, and K per replay, each of one
+    row, or ``steps``: the rows of each step of a batched run); for the
+    int4 tiers, every K2 code path the run took must be among those the K2
     phases hold bit for bit. -> (predicted, how)."""
     from realtime_whisper_asr_tpu_torch.ops import int4_matmul
 
@@ -952,7 +967,9 @@ def check_k2_launches(label: str, asr, rows: dict, graphs: dict, launched: int,
         return 1 if m <= int4_matmul.DECODE_MAX_M else 2
 
     k = asr.decode_loop.k
-    passes = rows["spans"] + [1] * (graphs["warmup_steps"] + k * graphs["replays"])
+    if steps is None:
+        steps = [1] * (graphs["warmup_steps"] + k * graphs["replays"])
+    passes = rows["spans"] + steps
     win = sum(per_linear(m) for m in rows["windows"])
     dec = sum(per_linear(m) for m in passes)
     predicted = asr.cfg.n_text_layer * (2 * win + 6 * dec) if int4 else 0
@@ -1297,6 +1314,500 @@ def phase_headline(guard: FailOnLog, smi: str) -> int:
     return launches
 
 
+#: bench.py's BENCH_STREAMS mode (run_multistream, bench.py:393-490) through
+#: the port: 16 s a stream (bench.py's default is 24), at N = 8 and N = 1;
+#: then the int4 tier once at N = 8 over 8 s
+SERVING_SECONDS = 16
+SERVING_STREAMS = (8, 1)
+SERVING_INT4_SECONDS = 8
+
+
+def serve_streams(server, sids: list, audios: list) -> dict:
+    """bench.py's pass: 1 s of audio to every stream, then ``step()`` until
+    the server is idle (every dispatched group finalized), chunk after
+    chunk. -> each stream's result texts."""
+    out = {sid: [] for sid in sids}
+    for pos in range(0, max(len(a) for a in audios), SR):
+        for sid, audio in zip(sids, audios):
+            server.feed(sid, audio[pos : pos + SR])
+        while server.step():
+            pass
+        for sid in sids:
+            out[sid].extend(r.text for r in server.poll(sid))
+    return out
+
+
+def _serve_golden(device: str) -> list:
+    """3 streams over the golden clips through the port's StreamServer (the
+    golden test-tiny weights at f32 on ``device``; no VAD, prefix policy
+    "last", pipelined; a constant clock, so no load shedding) -> each
+    stream's commits, its final flush included."""
+    import torch
+
+    from realtime_whisper_asr_tpu_torch.asr import TorchWhisperASR
+    from realtime_whisper_asr_tpu_torch.models.whisper.config import get_config
+    from realtime_whisper_asr_tpu_torch.models.whisper.convert import load_flat_npz
+    from realtime_whisper_asr_tpu_torch.serving import StreamServer
+
+    asr = TorchWhisperASR(cfg=get_config("test-tiny"), dtype=torch.float32, device=device,
+                          params=load_flat_npz(os.path.join(GOLDEN, "params.npz")))
+    asr.transcribe_kargs["max_total_tokens"] = 24  # random weights never emit EOT
+    server = StreamServer(asr, use_vad=False, online_chunk_size=0.5, prefix_policy="last",
+                          clock=lambda: 0.0)
+    sids = [server.create_stream() for _ in range(3)]
+    out = serve_streams(server, sids, [golden_audio(i) for i in range(3)])
+    for sid in sids:
+        out[sid].extend(r.text for r in server.close_stream(sid))
+    if server.group_failures:
+        raise AssertionError(f"golden serving on {device}: {server.group_failures} group failures")
+    return [out[sid] for sid in sids], asr
+
+
+def _first_divergence(asr, xa_row, init: np.ndarray, ref: list, got: list) -> str:
+    """The first token where ``got`` leaves ``ref`` and the top-2 logit
+    margin of ``asr``'s model there, teacher-forced along ``ref``."""
+    import torch
+
+    i = next((j for j, (a, b) in enumerate(zip(ref, got)) if a != b), min(len(ref), len(got)))
+    hist = np.concatenate([init, np.asarray(ref[:i], np.int64)]).astype(np.int64)
+    with torch.inference_mode():
+        logits, _ = asr.model.decode_span(torch.from_numpy(hist)[None].to(xa_row.device), 0,
+                                          asr.model.init_cache(xa_row, text_ctx=448))
+    top2 = torch.topk(logits[0, -1].float(), 2).values
+    return (f"first divergence at sampled token {i} ({ref[i] if i < len(ref) else 'end'} vs "
+            f"{got[i] if i < len(got) else 'end'}), top-2 logit margin "
+            f"{float(top2[0] - top2[1]):.4g}")
+
+
+def check_batch_equals_rows(asr, label: str) -> None:
+    """``greedy_decode_batch`` on the card against each row's own
+    ``greedy_decode`` of its plan at the group's bucket, tokens equal: the
+    golden clips' windows at three streaming states (none, a forced prefix,
+    a prompt), then with a draft in every row. A difference fails, with the
+    top-2 margin at the first divergent token."""
+    import torch
+
+    from realtime_whisper_asr_tpu_torch.models.whisper import decode as D
+
+    opts = asr._make_opts()
+    xa = torch.cat([asr._logmel_encode(torch.from_numpy(asr._pad_window(golden_audio(i))).cuda())
+                    for i in range(3)])
+    base = []
+    for i in range(3):
+        plan = D.plan_window(asr.cfg, opts)
+        res = D.greedy_decode(asr.model, xa[i : i + 1], opts, plan,
+                              torch.from_numpy(plan.aux).cuda(), asr._extra_suppress,
+                              loop=asr.decode_loop)
+        base.append(res.tokens[0][: res.lengths[0]].tolist())
+    groups = {"states": [{}, {"prefix_tokens": base[1][:6]}, {"prompt_tokens": [41, 42, 43]}],
+              "drafts": [{"prefix_tokens": b[:3], "draft_tokens": b[3:3 + 4 * (i + 1)]}
+                         for i, b in enumerate(base)]}
+    for name, requests in groups.items():
+        plan = D.plan_batch_aux(asr.cfg, opts, requests)
+        batch = D.greedy_decode_batch(asr.model, xa, opts, requests,
+                                      extra_suppress=asr._extra_suppress, loop=asr.decode_loop)
+        for i, (res, row) in enumerate(zip(batch, plan.rows)):
+            one = D.greedy_decode(asr.model, xa[i : i + 1], opts, row,
+                                  torch.from_numpy(row.aux).cuda(), asr._extra_suppress,
+                                  loop=asr.decode_loop)
+            got, ref = (r.tokens[0][: r.lengths[0]].tolist() for r in (res, one))
+            if got != ref:
+                n = row.n_prefix
+                msg = _first_divergence(asr, xa[i : i + 1], row.init, ref[n:], got[n:])
+                raise AssertionError(f"{label} group {name!r} row {i} (p={plan.p}, draft_max="
+                                     f"{plan.draft_max}): batched tokens {got} != the row's "
+                                     f"own decode {ref}; {msg}")
+    print(f"{label}: greedy_decode_batch on the card equals each row's greedy_decode at the "
+          f"group's bucket, tokens equal (3 rows at 3 states; 3 rows with drafts, draft_max "
+          f"{D.DRAFT_MAX})")
+
+
+def check_batch_graph_equals_uncaptured(asr, label: str, clips: list) -> None:
+    """A batched decode of B = len(clips) rows through the graph path and
+    through the same step uncaptured on the card, the packed results bit for
+    bit (``check_graph_equals_uncaptured`` with B rows), for two groups:
+    rows at different streaming states (none, a forced prefix, a prompt, a
+    prefix and a draft; one draft-less row makes the group's draft bucket
+    0), then every row with a prefix and a draft of its own length (the
+    bucket ``DRAFT_MAX``, acceptance the batch minimum)."""
+    import torch
+
+    from realtime_whisper_asr_tpu_torch.models.whisper import decode as D
+
+    opts = asr._make_opts()
+    with torch.inference_mode():
+        xa = torch.cat([asr._logmel_encode(torch.from_numpy(asr._pad_window(c)).cuda())
+                        for c in clips])
+    plan0 = D.plan_window(asr.cfg, opts)
+    base = []
+    for i in range(len(clips)):
+        res = D.greedy_decode(asr.model, xa[i : i + 1], opts, plan0,
+                              torch.from_numpy(plan0.aux).cuda(), asr._extra_suppress,
+                              loop=asr.decode_loop)
+        base.append(res.tokens[0][: res.lengths[0]].tolist())
+    ids = base[1]
+    groups = {
+        "states": ([{}, {"prefix_tokens": ids[:8]}, {"prompt_tokens": [41, 42, 43]},
+                    {"prefix_tokens": ids[:4], "draft_tokens": ids[4:12]}][: len(clips)], 0),
+        "drafts": ([{"prefix_tokens": b[:3], "draft_tokens": b[3 : 3 + 4 * (i + 1)]}
+                    for i, b in enumerate(base)], D.DRAFT_MAX),
+    }
+    for name, (requests, draft_max) in groups.items():
+        plan = D.plan_batch_aux(asr.cfg, opts, requests)
+        what = (f"{label}: batch of {len(clips)}, group {name!r} ({xa.shape[1] // 50} s "
+                f"windows, p={plan.p}, max_new={plan.max_new}, draft_max={plan.draft_max})")
+        if plan.draft_max != draft_max:
+            raise AssertionError(f"{what}: the draft bucket is not {draft_max}")
+        aux = torch.from_numpy(plan.aux).cuda()
+        graph_packed, eager_packed = (
+            D._decode_window(asr.model, opts, xa, aux, plan, asr._extra_suppress, None, loop,
+                             captured=captured).cpu()
+            for loop, captured in ((asr.decode_loop, True),
+                                   (D.DecodeLoop(k=asr.decode_loop.k), False)))
+        if not torch.equal(graph_packed.view(torch.int32), eager_packed.view(torch.int32)):
+            tok_g = graph_packed.view(len(clips), -1)[:, : plan.max_new]
+            tok_e = eager_packed.view(len(clips), -1)[:, : plan.max_new]
+            bad = (tok_g != tok_e).nonzero()
+            if not len(bad):
+                raise AssertionError(f"{what}: graph and uncaptured tokens equal, the rest of "
+                                     f"the packed result differs")
+            r = int(bad[0, 0])
+            row = plan.rows[r]
+            msg = _first_divergence(asr, xa[r : r + 1], row.init, tok_e[r].long().tolist(),
+                                    tok_g[r].long().tolist())
+            raise AssertionError(f"{what}: the graph path differs from the uncaptured loop in "
+                                 f"row {r}; {msg}")
+        print(f"{what}: graph path bit-equal to the uncaptured loop on the card")
+
+
+def _memory_row_estimate(asr) -> tuple[int, int]:
+    """(``_hbm_safe_batch``'s working set of one row, the model's parameter
+    and buffer bytes)."""
+    import itertools
+
+    from realtime_whisper_asr_tpu_torch.serving import _row_bytes
+
+    model = asr.model
+    return _row_bytes(asr.cfg), sum(t.numel() * t.element_size() for t in
+                                    itertools.chain(model.parameters(), model.buffers()))
+
+
+def run_capacity(asr, n: int, seconds: int, label: str, guard: FailOnLog) -> dict:
+    """bench.py's run_multistream (bench.py:393-490) at N = ``n`` streams:
+    a server with no VAD, 0.5 s online chunks, prefix policy "last" and
+    ``max_batch`` max(N, 2); ``synthetic_speech(seconds)`` to every stream, 1
+    s at a time, then ``step()`` until idle; a warm-up pass, the processors
+    reset and the counters zeroed in place, then the timed pass (and once
+    more under a PhaseTimer, for a group's split), with K1's
+    launches, the batch sizes, each group's dispatch ms, the rows encoded
+    and the loop's captures read around it. The ASR gets a new DecodeLoop,
+    and the peak memory over both passes is read against the memory
+    allocated before them (the model): what N streams add, their graphs'
+    state buffers and pool included."""
+    import gc
+
+    import torch
+
+    from realtime_whisper_asr_tpu_torch.models.whisper import decode as D
+    from realtime_whisper_asr_tpu_torch.ops import logmel
+    from realtime_whisper_asr_tpu_torch.serving import StreamServer
+    from realtime_whisper_asr_tpu_torch.services import PerformanceMonitor
+    from realtime_whisper_asr_tpu_torch.utils.profiling import PhaseTimer
+
+    asr.decode_loop = loop = D.DecodeLoop()
+    gc.collect()  # the previous loop's graphs and state buffers
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    server = StreamServer(asr, use_vad=False, online_chunk_size=0.5, prefix_policy="last",
+                          max_batch=max(n, 2))
+    sids = [server.create_stream() for _ in range(n)]
+    audio = synthetic_speech(seconds)
+    t0 = time.perf_counter()
+    serve_streams(server, sids, [audio] * n)  # warm-up: every loop shape of the pass
+    warm_s = time.perf_counter() - t0
+    for sid in sids:  # reset the streams, keep the graphs
+        server.streams[sid].processor.init()
+    server.monitor = PerformanceMonitor()
+    for key in asr.counters:  # in place: the ASR increments these keys
+        asr.counters[key] = 0
+    server.group_failures = 0
+    sizes, dispatch_ms, encoded = [], [], []
+    dispatch, encode = asr.transcribe_batch_dispatch, asr._encode_many
+
+    def timed_dispatch(items):
+        t0 = time.perf_counter()
+        out = dispatch(items)
+        dispatch_ms.append(1e3 * (time.perf_counter() - t0))
+        sizes.append(len(items))
+        return out
+
+    def counted_encode(keys, n_samples):
+        encoded.append(len(keys))
+        return encode(keys, n_samples)
+
+    asr.transcribe_batch_dispatch, asr._encode_many = timed_dispatch, counted_encode
+    stats0 = dict(loop.stats)
+    # ---- the timed pass, with K1's launch count read around it
+    logmel.logmel_launches = 0
+    t0 = time.perf_counter()
+    serve_streams(server, sids, [audio] * n)
+    wall = time.perf_counter() - t0
+    launches = logmel.logmel_launches
+    # ----
+    del asr.transcribe_batch_dispatch, asr._encode_many
+    peak = torch.cuda.max_memory_allocated()
+    graphs = {k: loop.stats[k] - stats0[k] for k in loop.stats}
+    counters = dict(asr.counters)
+    # a group's phases: the pass once more, the timer syncing at each boundary
+    for sid in sids:
+        server.streams[sid].processor.init()
+    asr.phase_timer = PhaseTimer()
+    serve_streams(server, sids, [audio] * n)
+    split = asr.phase_timer.report()
+    asr.phase_timer = None
+    if server.group_failures or guard.records:
+        raise AssertionError(f"{label} N={n}: {server.group_failures} group failures, logged "
+                             f"errors {guard.records}")
+    if counters["ticks"] == 0:
+        raise AssertionError(f"{label} N={n}: the timed pass decoded no tick")
+    if launches != sum(encoded) or not launches:
+        raise AssertionError(f"{label} N={n}: logmel launched {launches} times for "
+                             f"{sum(encoded)} rows encoded")
+    for sid in sids:
+        asr.drop_stream(sid)
+    return {"n": n, "rtf": wall / (n * seconds), "wall": wall, "warm_s": warm_s,
+            "warm_captures": stats0["captures"],
+            "ticks": counters["ticks"], "new_tokens": counters["new_tokens"],
+            "sizes": sizes, "dispatch_ms": dispatch_ms, "rows": sum(encoded),
+            "launches": launches, "graphs": graphs, "peak": peak, "base": base,
+            "cap": server.device_batch_cap, "shapes": len(loop._graphs), "split": split}
+
+
+def profile_decode_split(asr, label: str, b: int, replays: int = 5) -> dict:
+    """Kernel time of the decode loop's step at batch ``b`` by name: one
+    batched decode of ``b`` rows (8 s windows, no prefix, the serving caps)
+    captures its graph, then ``replays`` replays of that graph (K steps
+    each; past the loop's end a step still runs every kernel and writes
+    nothing) are traced: the time a step, the top kernels and the share of
+    the dtype copies (the f32 upcasts in ``_attend`` and the head)."""
+    import torch
+
+    from realtime_whisper_asr_tpu_torch.models.whisper import decode as D
+
+    opts = asr._make_opts()
+    with torch.inference_mode():
+        xa = asr._logmel_encode(torch.from_numpy(asr._pad_window(synthetic_speech(8.0))).cuda())
+    loop = asr.decode_loop
+    D.greedy_decode_batch(asr.model, xa.expand(b, -1, -1).contiguous(), opts, [{}] * b,
+                          extra_suppress=asr._extra_suppress, loop=loop)
+    key, graph = next(reversed(loop._graphs.items()))  # the loop shape just used
+    if key.batch != b:
+        raise AssertionError(f"{label}: the last loop shape has batch {key.batch}, not {b}")
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=acts) as prof:
+        for _ in range(replays):
+            graph.run_k()
+        torch.cuda.synchronize()
+    events = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
+    steps = replays * loop.k
+    if not events:
+        print(f"{label}: decode step at B={b}: device time not measured (no kernels traced)")
+        return {}
+    total = sum(e.self_device_time_total for e in events) / 1e3
+    copies = sum(e.self_device_time_total for e in events if "copy" in e.key.lower()) / 1e3
+    top = sorted(events, key=lambda e: -e.self_device_time_total)[:5]
+    print(f"{label}: decode step at B={b} (window {key.audio_ctx // 50} s, p={key.p}, cache "
+          f"{key.cache_len}; {steps} steps traced): kernels {total / steps:.3f} ms a step, dtype "
+          f"copies {copies / steps:.3f} ms ({copies / total:.0%}); top a step: "
+          + "; ".join(f"{e.key[:50]} {e.self_device_time_total / 1e3 / steps:.3f} ms"
+                      for e in top))
+    return {"per_step": total / steps, "copies": copies / steps}
+
+
+def phase_serving(guard: FailOnLog, smi: str) -> dict:
+    """Batched multi-stream serving through the port's StreamServer:
+
+    1. test-tiny golden weights at f32: 3 streams over the golden clips,
+       batched and pipelined, commit on the card what the same server
+       commits on the CPU; ``greedy_decode_batch`` on the card equals each
+       row's own decode (``check_batch_equals_rows``);
+    2. large-v3 ``int8-all`` (seed 0, 96-token caps): a batch of 4 rows at
+       different states, then 4 rows each with a draft (the bucket
+       ``DRAFT_MAX``), the graph path bit-equal to the uncaptured loop;
+    3. capacity, bench.py's ``BENCH_STREAMS`` mode at N = 8 and N = 1
+       (``run_capacity``): aggregate RTF = wall / (N x 16 s), ticks, new
+       tokens, group failures (must be 0), batch sizes, group dispatch ms
+       p50, captures after the warm-up, K1 launches = rows encoded, peak
+       memory and its growth per row beside ``_hbm_safe_batch``'s estimate,
+       a PhaseTimer split of a group; the decode step's kernel split at
+       B = 8 and B = 1;
+    4. the int4 tier once at N = 8 over 8 s: K2's launches equal the count
+       predicted from the run's cross-K/V calls, prefill spans and loop
+       steps (B rows each), every row count it takes a K2 shape of phase 6.
+    -> K1's and K2's launches in the int4 pass."""
+    import torch
+
+    from realtime_whisper_asr_tpu_torch.asr import TorchWhisperASR
+    from realtime_whisper_asr_tpu_torch.ops import int4_matmul, logmel
+    from realtime_whisper_asr_tpu_torch.serving import StreamServer
+
+    parts: dict[str, float] = {}
+    t_part = [time.perf_counter()]
+
+    def lap(name: str) -> None:
+        now = time.perf_counter()
+        parts[name] = round(now - t_part[0], 1)
+        t_part[0] = now
+
+    # 1. correctness at f32
+    cpu, _ = _serve_golden("cpu")
+    lap("golden cpu")
+    card, golden_asr = _serve_golden("cuda")
+    lap("golden card")
+    if card != cpu or not all(card):
+        raise AssertionError(f"golden serving: the card's commits {card} != the CPU's {cpu}")
+    print(f"golden serving f32: 3 streams, batched and pipelined, commit on the card what the "
+          f"CPU commits ({[len(c) for c in card]} results a stream)")
+    check_batch_equals_rows(golden_asr, "golden f32")
+    del golden_asr
+    lap("batch vs rows")
+
+    # 2. the graph path at B = 4, large-v3 int8-all
+    label = "serving large-v3 int8-all"
+    t0 = time.perf_counter()
+    asr = TorchWhisperASR(model_size="large-v3", dtype=torch.bfloat16, device="cuda", seed=0,
+                          quantization="int8-all")
+    asr.transcribe_kargs.update(max_new_tokens=96, max_total_tokens=96)
+    print(f"{label}: random init and int8 quantization in {time.perf_counter() - t0:.1f} s")
+    lap("init int8-all")
+    check_batch_graph_equals_uncaptured(asr, label, [synthetic_speech(8.0, seed=s)
+                                                     for s in range(4)])
+    lap("graph check B=4")
+
+    # 3. capacity at N = 8 and N = 1
+    runs = {}
+    for n in SERVING_STREAMS:
+        runs[n] = run = run_capacity(asr, n, SERVING_SECONDS, label, guard)
+        lap(f"capacity N={n}")
+        print(f"{label} on {smi}: N={n}: aggregate RTF {run['rtf']:.4f} (wall "
+              f"{run['wall']:.2f} s / {n} x {SERVING_SECONDS} s; warm-up pass "
+              f"{run['warm_s']:.1f} s, {run['warm_captures']} captures in it); {run['ticks']} "
+              f"ticks, {run['new_tokens']} new tokens; "
+              f"group_failures 0; batch sizes {sorted(set(run['sizes']))} over "
+              f"{len(run['sizes'])} groups; group dispatch p50 "
+              f"{np.median(run['dispatch_ms']):.1f} ms; {run['graphs']['captures']} captures "
+              f"after the warm-up ({run['shapes']} loop shapes kept); {run['graphs']['replays']} "
+              f"replays; rows encoded {run['rows']} = K1 launches {run['launches']}; peak "
+              f"memory {run['peak'] / 2**30:.2f} GiB, {(run['peak'] - run['base']) / 2**20:.1f} "
+              f"MiB above the model's {run['base'] / 2**30:.2f} GiB; device_batch_cap "
+              f"{run['cap']}")
+        print(f"{label} on {smi}: N={n}: PhaseTimer split of a group, the pass once more (mean "
+              f"ms over {run['split']['decode']['count']} groups): "
+              + ", ".join(f"{k} {v['mean_ms']}" for k, v in run["split"].items()))
+    row_est, param_bytes = _memory_row_estimate(asr)
+    big, one = runs[SERVING_STREAMS[0]], runs[SERVING_STREAMS[1]]
+    growth = ((big["peak"] - big["base"]) - (one["peak"] - one["base"])) / (big["n"] - one["n"])
+    print(f"{label} on {smi}: peak memory per row (N={big['n']} against N={one['n']}) "
+          f"{growth / 2**20:.1f} MiB against _hbm_safe_batch's {row_est / 2**20:.1f} MiB a row of "
+          f"a group (2 groups in flight: {2 * row_est / 2**20:.1f} MiB); parameters and buffers "
+          f"{param_bytes / 2**30:.2f} GiB; device_batch_cap {big['cap']} on "
+          f"{torch.cuda.get_device_properties(0).total_memory / 2**30:.1f} GiB")
+    split = {b: profile_decode_split(asr, label, b) for b in (8, 1)}
+    lap("decode split")
+    if split[8] and split[1]:
+        print(f"{label} on {smi}: a decode step at B=8 costs "
+              f"{split[8]['per_step'] / split[1]['per_step']:.2f}x a step at B=1 in kernel time")
+    del asr
+    import gc
+
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # 4. the int4 tier once at N = 8
+    label = "serving large-v3 int4"
+    asr = TorchWhisperASR(model_size="large-v3", dtype=torch.bfloat16, device="cuda", seed=0,
+                          quantization="int4")
+    asr.transcribe_kargs.update(max_new_tokens=96, max_total_tokens=96)
+    lap("init int4")
+    loop = asr.decode_loop
+    rows = {"windows": [], "spans": []}
+    for name, key in (("precompute_cross_kv", "windows"), ("decode_span", "spans")):
+        inner = getattr(asr.model, name)
+
+        def counted(first, *args, _inner=inner, _key=key, **kwargs):
+            rows[_key].append(first.shape[0] * first.shape[1] if _key == "windows"
+                              else first.numel())
+            return _inner(first, *args, **kwargs)
+
+        setattr(asr.model, name, counted)
+    steps: list[int] = []  # the rows of each loop step: warm-ups and replays
+    loop_of, run_of = loop.loop, loop.run
+
+    def recording_loop(model, key, *args):
+        w0 = loop.stats["warmup_steps"]
+        out = loop_of(model, key, *args)
+        steps.extend([key.batch] * (loop.stats["warmup_steps"] - w0))
+        return out
+
+    def recording_run(lp, steps_max):
+        r0, e0 = loop.stats["replays"], loop.stats["eager_steps"]
+        run_of(lp, steps_max)
+        n_steps = loop.k * (loop.stats["replays"] - r0) + loop.stats["eager_steps"] - e0
+        steps.extend([lp.state.tokens.shape[0]] * n_steps)
+
+    encoded: list[int] = []
+    encode = asr._encode_many
+
+    def counted_encode(keys, n_samples):
+        encoded.append(len(keys))
+        return encode(keys, n_samples)
+
+    loop.loop, loop.run, asr._encode_many = recording_loop, recording_run, counted_encode
+    n = SERVING_STREAMS[0]
+    server = StreamServer(asr, use_vad=False, online_chunk_size=0.5, prefix_policy="last",
+                          max_batch=max(n, 2))
+    sids = [server.create_stream() for _ in range(n)]
+    audio = synthetic_speech(SERVING_INT4_SECONDS)
+    stats0 = dict(loop.stats)
+    # ---- the int4 pass, with K1's and K2's launch counts read around it
+    logmel.logmel_launches = 0
+    int4_matmul.int4_launches = 0
+    t0 = time.perf_counter()
+    serve_streams(server, sids, [audio] * n)
+    wall = time.perf_counter() - t0
+    launched = {"logmel": logmel.logmel_launches, "int4": int4_matmul.int4_launches}
+    # ----
+    del loop.loop, loop.run, asr._encode_many
+    graphs = {k: loop.stats[k] - stats0[k] for k in loop.stats}
+    if server.group_failures or guard.records:
+        raise AssertionError(f"{label}: {server.group_failures} group failures, logged errors "
+                             f"{guard.records}")
+    if launched["logmel"] != sum(encoded) or not encoded:
+        raise AssertionError(f"{label}: logmel launched {launched['logmel']} times for "
+                             f"{sum(encoded)} rows encoded")
+    predicted, formula = check_k2_launches(label, asr, rows, graphs, launched["int4"], True,
+                                           steps=steps)
+    held = {m for _, m, _, _ in INT4_SHAPES}
+    used = sorted(set(rows["windows"] + rows["spans"] + steps))
+    if set(used) - held:
+        raise AssertionError(f"{label}: K2 ran at row counts {sorted(set(used) - held)} that no "
+                             f"K2 shape of phase 6 holds against the plain version")
+    print(f"{label} on {smi}: N={n} over {SERVING_INT4_SECONDS} s (graphs captured in it): "
+          f"wall {wall:.2f} s, aggregate RTF {wall / (n * SERVING_INT4_SECONDS):.4f}; "
+          f"{asr.counters['ticks']} ticks; K2 launches {launched['int4']} = predicted "
+          f"{predicted} ({formula}); K2 row counts taken {used}, each a K2 shape of phase 6 "
+          f"(held bit for bit there); K1 launches "
+          f"{launched['logmel']} = rows encoded; batch steps of {sorted(set(steps))} rows; "
+          f"{graphs['captures']} captures")
+    lap("int4 pass")
+    print(f"phase_serving seconds: {parts}")
+    return {"logmel": launched["logmel"], "int4": launched["int4"],
+            "rtf": {k: v["rtf"] for k, v in runs.items()}}
+
+
 def _bound(nbytes: float, ops: float, peak_ops: float) -> tuple[float, str]:
     """(ms, what bounds it): the larger of bytes over the memory rate and
     operations over the peak rate of their type."""
@@ -1309,7 +1820,9 @@ def _bound(nbytes: float, ops: float, peak_ops: float) -> tuple[float, str]:
 #: prompt, M = 2 to 8: each of the decode kernel's row counts) and long
 #: (M = 24, above 8 rows: the tensor-core product, fc2 over all 40 groups;
 #: M = 32 and 48: the 16-slot draft spans after prompts of 16 and 32);
-#: the cross-K/V projection at the 16 s bucket; and test-tiny's (one scale
+#: the cross-K/V projection at the 16 s bucket; the serving phase's batched
+#: shapes (8 rows x a span: 8 x 8, 8 x (128 + 16 draft slots); the
+#: cross-K/V of 8 windows of 8 s; its steps are M = 8); and test-tiny's (one scale
 #: group at K = 64; the fused-qkv N = 192; two groups). Every path the
 #: large-v3 int4 run takes is among them (phase_full_width checks it).
 INT4_SHAPES = (
@@ -1328,6 +1841,9 @@ INT4_SHAPES = (
     ("draft span fc1 M=32", 32, 1280, 5120),
     ("draft span fc2 M=48", 48, 5120, 1280),
     ("cross-K/V 16 s", 800, 1280, 1280),
+    ("batch span qkv M=64", 64, 1280, 3840),
+    ("batch span fc2 M=1152", 1152, 5120, 1280),
+    ("cross-K/V 8 x 8 s", 3200, 1280, 1280),
     ("test-tiny qkv G=1", 1, 64, 192),
     ("test-tiny prefill G=1", 17, 64, 192),
     ("test-tiny fc2 G=2", 5, 256, 64),
@@ -1721,6 +2237,9 @@ def main() -> int:
         gc.collect()
         torch.cuda.empty_cache()
     run("headline", phase_headline, guard, smi)
+    gc.collect()
+    torch.cuda.empty_cache()
+    run("serving", phase_serving, guard, smi)
     gc.collect()
     torch.cuda.empty_cache()
     chain_launches = run("microbench", phase_microbench)

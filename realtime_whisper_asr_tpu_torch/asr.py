@@ -22,6 +22,11 @@ result's copy) then ``transcribe_finalize`` (the wait for that copy and the
 parse); ``transcribe`` runs the two back to back, and the pipelined
 streaming loop (``streaming/online.py``) puts the next tick's dispatch
 between them.
+
+``transcribe_batch`` (``transcribe_batch_dispatch`` / ``_finalize``) is the
+multi-stream tick the server (``serving.py``) runs: B streams' new audio
+and aux rows in one copy, each applied to its own ring, log-mel once per
+row, one encode of B rows and one batched decode (``decode.greedy_decode_batch``).
 """
 
 from __future__ import annotations
@@ -39,7 +44,7 @@ from realtime_whisper_asr_tpu_torch.models.whisper import decode as D
 from realtime_whisper_asr_tpu_torch.models.whisper import quant as Q
 from realtime_whisper_asr_tpu_torch.models.whisper import timestamps as TS
 from realtime_whisper_asr_tpu_torch.models.whisper.config import WhisperConfig, get_config
-from realtime_whisper_asr_tpu_torch.models.whisper.model import Whisper, init_params
+from realtime_whisper_asr_tpu_torch.models.whisper.model import Whisper, encoder_flops, init_params
 from realtime_whisper_asr_tpu_torch.models.whisper.tokenizer import Tokenizer, get_tokenizer
 from realtime_whisper_asr_tpu_torch.ops.logmel import log_mel_spectrogram
 from realtime_whisper_asr_tpu_torch.utils.profiling import sync_device
@@ -180,9 +185,12 @@ class TorchWhisperASR:
         #: serialize work the host otherwise queues ahead.
         self.phase_timer = None
         #: one tick (window) = one h2d transfer, one log-mel launch, one
-        #: encode; a prefetch (``prefetch_audio``) is one h2d transfer more
+        #: encode; a prefetch (``prefetch_audio``) is one h2d transfer more; a
+        #: batched tick of B streams is one transfer, B log-mel launches and
+        #: one encode of B rows. ``encode_flops``: the encoder's matmul FLOPs
+        #: over the rows encoded (``model.encoder_flops``)
         self.counters = {"new_tokens": 0, "ticks": 0, "encoded_frames": 0,
-                         "h2d_transfers": 0, "h2d_bytes": 0}
+                         "h2d_transfers": 0, "h2d_bytes": 0, "encode_flops": 0}
         #: per-stream device audio rings: key -> (ring (_CAP,) f32 on the
         #: device, the f32 audio it holds as the host last sent it). The ring
         #: is zero past that audio, so its first window bucket is the padded
@@ -306,7 +314,10 @@ class TorchWhisperASR:
         """ONE copy, from pinned memory, of the plans' words and the aux rows
         (None: none), then each plan applied to its stream's ring on the
         copy's stream -> the aux words on the device. The write positions
-        and shift amounts are host integers the slices take directly.
+        and shift amounts are host integers the slices take directly. Every
+        row reads its stream's ring as it was before the call: a group padded
+        by repeating a row applies that stream's plan twice, and a second
+        shift must not shift the shifted ring again.
 
         The caching host allocator records the copy's event on the pinned
         block, so the block is not reused before the copy has read it."""
@@ -318,18 +329,19 @@ class TorchWhisperASR:
         up = host.to(self.device, non_blocking=True)
         self.counters["h2d_transfers"] += 1
         self.counters["h2d_bytes"] += host.numel() * 4
+        bases = [None if plan["kind"] == "full" else self._buffers[key][0]
+                 for key, plan in zip(keys, plans)]
         off = 0
-        for key, plan in zip(keys, plans):
+        for key, plan, base in zip(keys, plans, bases):
             n = len(plan["words"])
             samples = _words_to_samples(up[off : off + n])
             off += n
             if plan["kind"] == "full":
                 ring = torch.nn.functional.pad(samples, (0, self._CAP - samples.shape[0]))
             elif plan["kind"] == "shift":
-                ring = _ring_shift_write(self._buffers[key][0], samples, plan["shift_k"],
-                                         plan["pos"])
+                ring = _ring_shift_write(base, samples, plan["shift_k"], plan["pos"])
             else:  # grow: in place (a tick already queued reads the ring first)
-                ring = self._buffers[key][0]
+                ring = base
                 if n:  # nothing new: a prefetch already landed the buffer
                     ring.narrow(0, plan["pos"], samples.shape[0]).copy_(samples)
             self._buffers[key] = (ring, plan["mirror"].copy())
@@ -362,8 +374,17 @@ class TorchWhisperASR:
     def _encode_from_buf(self, n_samples: int) -> torch.Tensor:
         """Log-mel and encoder over the active stream's ring, its first
         window bucket for ``n_samples`` of audio (zero past the audio)."""
-        ring = self._buffers[self._active_stream][0]
-        return self._logmel_encode(ring[: self._window_bucket(n_samples)])
+        return self._encode_many([self._active_stream], [n_samples])
+
+    def _encode_many(self, keys, n_samples_list) -> torch.Tensor:
+        """B streams' windows in one encode -> (B, frames/2, d): every row
+        at the group's largest window bucket (each ring is zero past its
+        audio), K1 once per row, one ``model.encode`` of the stack."""
+        nb = max(self._window_bucket(n) for n in n_samples_list)
+        self.counters["encode_flops"] += len(keys) * encoder_flops(self.cfg, nb // (2 * 160))
+        mels = [log_mel_spectrogram(self._buffers[k][0][:nb], n_mels=self.cfg.n_mels)
+                for k in keys]
+        return self.model.encode(torch.stack(mels).to(self.model.dtype))
 
     def _logmel_encode(self, audio: torch.Tensor) -> torch.Tensor:
         """(n,) f32 window on the device -> encoder output (1, n/320, d)."""
@@ -429,6 +450,84 @@ class TorchWhisperASR:
             else:
                 offset += WINDOW_SAMPLES
         return TranscriptionResult(segments)
+
+    def transcribe_batch(self, items: list[dict]) -> list[TranscriptionResult]:
+        """A batched multi-stream tick: B streams in one upload, one encode
+        of B rows, one batched decode and one download.
+
+        ``items``: ``[{"key", "audio", "init_prompt"?, "prefix_ids"?,
+        "draft_ids"?}]``, one per stream (its device ring is ``key``'s). The
+        rows share the decode options, so callers group items by language
+        and task. One item goes through ``transcribe``."""
+        if len(items) == 1:
+            it = items[0]
+            self.set_active_stream(it["key"])
+            return [self.transcribe(it["audio"], it.get("init_prompt") or "",
+                                    it.get("prefix_ids"), it.get("draft_ids"))]
+        return self.transcribe_batch_finalize(self.transcribe_batch_dispatch(items))
+
+    @torch.inference_mode()
+    def transcribe_batch_dispatch(self, items: list[dict]) -> dict:
+        """The first half of ``transcribe_batch``: plan, upload, encode and
+        the decode up to the start of its result's copy; returns a handle
+        for ``transcribe_batch_finalize``. B is padded to a power of two by
+        repeating the last item, so group sizes add few loop shapes; the pad
+        rows are dropped in the finalize. Beam search raises
+        ``NotImplementedError`` (ROADMAP queue 1 item 12)."""
+        if self.transcribe_kargs.get("beam_size", 1) > 1:
+            raise NotImplementedError("batched beam search is not ported yet "
+                                      "(ROADMAP queue 1 item 12)")
+        n_real = len(items)
+        padded = list(items)
+        while len(padded) & (len(padded) - 1):
+            padded.append(padded[-1])
+        opts = self._make_opts()
+        keys, audios, requests = [], [], []
+        for it in padded:
+            prompt = it.get("init_prompt") or ""
+            requests.append({"prompt_tokens": self.tokenizer.encode(prompt) if prompt else None,
+                             "prefix_tokens": it.get("prefix_ids"),
+                             "draft_tokens": it.get("draft_ids")})
+            audios.append(np.asarray(it["audio"], np.float32))
+            keys.append(it["key"])
+        plan = D.plan_batch_aux(self.cfg, opts, requests)
+        cap_slot = D.AUX_TOK + 4
+        for row, audio in zip(plan.rows, audios):  # each row's per-second cap
+            row.aux[cap_slot] = self._density_cap(row.cap, row.n_prefix, len(audio))
+        pt = self.phase_timer
+        if pt is not None:
+            pt.mark()
+        aux_dev = self._sync_many(keys, audios, plan.aux)
+        if pt is not None:
+            sync_device(self.device)
+            pt.lap("upload")
+        xa = self._encode_many(keys, [len(a) for a in audios])
+        if pt is not None:
+            sync_device(self.device)
+            pt.lap("encode")
+        handle = D.greedy_decode_batch_dispatch(
+            self.model, xa, opts, plan, aux_dev, extra_suppress=self._extra_suppress,
+            alignment_heads=self.alignment_heads, loop=self.decode_loop, phase_timer=pt)
+        return {"handle": handle, "items": items, "requests": requests, "n_real": n_real}
+
+    def transcribe_batch_finalize(self, st: dict) -> list[TranscriptionResult]:
+        """The second half of ``transcribe_batch``: wait for the result's
+        copy, then parse each real row's segments and tokens."""
+        items, requests, n_real = st["items"], st["requests"], st["n_real"]
+        results = D.greedy_decode_batch_finalize(st["handle"])
+        out = []
+        for it, res, req in zip(items[:n_real], results[:n_real], requests[:n_real]):
+            n_frames = min(len(it["audio"]) // (2 * 160), self.cfg.n_audio_ctx)
+            segs = self._parse_segments(res, n_frames, 0.0)
+            ids = res.tokens[0][: res.lengths[0]].tolist()
+            if ids and ids[-1] == self.cfg.eot:
+                ids = ids[:-1]
+            out.append(TranscriptionResult(segs, tokens=ids))
+            self.counters["ticks"] += 1
+            self.counters["new_tokens"] += int(res.lengths[0]) - len(req["prefix_tokens"] or [])
+        if self.phase_timer is not None:
+            self.phase_timer.lap("host_parse")
+        return out
 
     @torch.inference_mode()
     def transcribe_dispatch(

@@ -117,13 +117,19 @@ class SileroLikeVAD:
 
     ``params``: the JAX package's VAD pytree (numpy leaves, as the npz holds
     them); the packaged trained weights when None. Runs on the card unless
-    ``device`` says otherwise, and raises when CUDA is absent."""
+    ``device`` says otherwise, and raises when CUDA is absent. ``net``: a
+    loaded ``SileroLikeNet`` to share with other VADs in place of loading
+    one (``params`` and ``device`` are then unused); each VAD keeps its own
+    state, so N streams hold one copy of the weights."""
 
-    def __init__(self, params: dict | None = None, device="cuda"):
+    def __init__(self, params: dict | None = None, device="cuda",
+                 net: SileroLikeNet | None = None):
         self.trained = params is None
-        self.net = SileroLikeNet(device)
-        self.net.load_state_dict(params_from_jax(
-            load_packaged_params() if params is None else params))
+        if net is None:
+            net = SileroLikeNet(device)
+            net.load_state_dict(params_from_jax(
+                load_packaged_params() if params is None else params))
+        self.net = net
         self.reset()
 
     @property

@@ -1,4 +1,4 @@
-"""Single-stream greedy decoding under Whisper's logit rules.
+"""Greedy decoding under Whisper's logit rules, of one window or of B streams'.
 
 Port of the greedy path of ``realtime_whisper_asr_tpu/models/whisper/decode.py``:
 one prefill pass (``decode_span``) over prompt + SOT sequence + forced prefix
@@ -28,6 +28,11 @@ unpacks. The pipelined streaming loop (``streaming/online.py``) puts the
 next tick's work between the two, and its async mode reads the previous
 tick's packed result on the card as the next draft
 (``patch_aux_device_draft``).
+
+``greedy_decode_batch`` (``plan_batch_aux``, then the dispatch and finalize
+halves) decodes B streams' windows in one loop of batch B: each row's
+prefix, cap and draft ride in its own aux row, every row at one prefill
+bucket, as the multi-stream server (``serving.py``) needs.
 """
 
 from __future__ import annotations
@@ -106,6 +111,7 @@ def build_initial_tokens(
     opts: DecodeOptions,
     prompt_tokens: Optional[list[int]] = None,
     prefix_tokens: Optional[list[int]] = None,
+    bucket: Optional[int] = None,
 ) -> tuple[np.ndarray, int, int]:
     """[sot_prev + pad + prompt?] + sot_seq + prefix?, bucketed.
     -> (tokens, sot_index, n_prefix).
@@ -113,29 +119,35 @@ def build_initial_tokens(
     The bucket padding lives INSIDE the conditioning region ([sot_prev] +
     blanks), which Whisper treats as prior context — blank padding there is
     semantically inert, unlike padding the forced prefix would be.
+    ``bucket`` forces the length (a batched decode needs every row at one
+    prefill length); content longer than it sheds as an overflow does.
     """
     sot_seq = list(cfg.sot_sequence(opts.language, opts.task, timestamps=opts.timestamps))
     prefix = list(prefix_tokens or [])
     prompt = list(prompt_tokens or [])
     if prompt:
         prompt = prompt[-(cfg.n_text_ctx // 2 - 1) :]
-    if not prompt and not prefix:
+    if not prompt and not prefix and bucket is None:
         return np.asarray(sot_seq, np.int32), 0, 0
-    # reserve space: [sot_prev] + pad + prompt + sot_seq + prefix
-    max_p = min(cfg.n_text_ctx - 64, _PROMPT_BUCKETS[-1], AUX_TOK)
-    base = 1 + len(prompt) + len(sot_seq) + len(prefix)
-    if base > max_p:
-        # shed the prefix TAIL first (the head must stay aligned with the
-        # audio window start — dropping it would make the model re-emit early
-        # content as duplicates), then shed the prompt's oldest tokens
-        overflow = base - max_p
-        drop = min(overflow, len(prefix))
-        prefix = prefix[: len(prefix) - drop]
-        overflow -= drop
+
+    def shed(limit: int) -> int:
+        """Shed the prefix TAIL first (the head must stay aligned with the
+        audio window start — dropping it would make the model re-emit early
+        content as duplicates), then the prompt's oldest tokens, until
+        [sot_prev] + prompt + sot_seq + prefix fits ``limit``."""
+        nonlocal prefix, prompt
+        overflow = 1 + len(prompt) + len(sot_seq) + len(prefix) - limit
         if overflow > 0:
-            prompt = prompt[overflow:]
-        base = 1 + len(prompt) + len(sot_seq) + len(prefix)
-    pad = _bucket(base) - base
+            drop = min(overflow, len(prefix))
+            prefix = prefix[: len(prefix) - drop]
+            prompt = prompt[overflow - drop :]
+        return 1 + len(prompt) + len(sot_seq) + len(prefix)
+
+    # reserve space: [sot_prev] + pad + prompt + sot_seq + prefix
+    base = shed(min(cfg.n_text_ctx - 64, _PROMPT_BUCKETS[-1], AUX_TOK))
+    target = _bucket(base) if bucket is None else bucket
+    base = shed(target)
+    pad = target - base
     tokens = [cfg.sot_prev] + [opts.blank_id] * pad + prompt + sot_seq + prefix
     sot_index = len(tokens) - len(prefix) - len(sot_seq)
     return np.asarray(tokens, np.int32), sot_index, len(prefix)
@@ -643,14 +655,15 @@ class DecodeLoop:
 
 @torch.inference_mode()
 def _decode_window(model: Whisper, opts: DecodeOptions, xa: torch.Tensor, aux: torch.Tensor,
-                   plan: "WindowPlan", extra_suppress: tuple[int, ...],
+                   plan: "WindowPlan | BatchPlan", extra_suppress: tuple[int, ...],
                    alignment_heads: Optional[np.ndarray], loop: DecodeLoop,
                    captured: bool) -> torch.Tensor:
-    """The decode of one planned window (prefill, then the loop: captured on
-    the card, uncaptured where ``captured`` is false), returning the packed
-    result (flat f32) on xa's device. ``aux`` (B, AUX_LEN) on xa's device."""
+    """The decode of one planned window, or of B streams' windows at one
+    bucket (prefill, then the loop: captured on the card, uncaptured where
+    ``captured`` is false), returning the packed result (flat f32) on xa's
+    device. ``aux`` (B, AUX_LEN) on xa's device."""
     cfg = model.cfg
-    p = int(plan.init.shape[0])
+    p = plan.p
     heads_key = (None if alignment_heads is None
                  else np.ascontiguousarray(alignment_heads, np.float32).tobytes())
     sup_mask = _sup_mask_dev(cfg, tuple(extra_suppress), xa.device)
@@ -663,7 +676,7 @@ def _decode_window(model: Whisper, opts: DecodeOptions, xa: torch.Tensor, aux: t
                                          plan.draft_max)
     # the host's bound on the loop's steps: the first token came from the
     # prefill, and no row goes past its cap (the plan's, ≤ max_new)
-    loop.run(run, min(int(plan.aux[AUX_TOK + 4]), plan.max_new) - 1)
+    loop.run(run, min(plan.cap, plan.max_new) - 1)
     return _pack(run.state, pre_xattn, no_speech_prob, p)
 
 
@@ -682,6 +695,15 @@ class WindowPlan:
     def prefix(self) -> np.ndarray:
         return self.init[len(self.init) - self.n_prefix :]
 
+    @property
+    def p(self) -> int:
+        return int(self.init.shape[0])
+
+    @property
+    def cap(self) -> int:
+        """The exact cap on sampled tokens, as the aux bundle holds it now."""
+        return int(self.aux[AUX_TOK + 4])
+
 
 def plan_window(
     cfg: WhisperConfig,
@@ -690,13 +712,16 @@ def plan_window(
     prefix_tokens: Optional[list[int]] = None,
     draft_tokens: Optional[list[int]] = None,
     force_draft_bucket: bool = False,
+    bucket: Optional[int] = None,
 ) -> WindowPlan:
     """Initial tokens, budget and aux bundle of one window. ``draft_tokens``
     (the previous hypothesis's tail beyond the forced prefix) enables the
     lossless self-speculative fast path. ``force_draft_bucket``: the
     DRAFT_MAX draft span with no host draft, for a caller that writes a
-    device-side draft into the uploaded aux (``patch_aux_device_draft``)."""
-    init, sot_index, n_prefix = build_initial_tokens(cfg, opts, prompt_tokens, prefix_tokens)
+    device-side draft into the uploaded aux (``patch_aux_device_draft``).
+    ``bucket``: the prefill length (``build_initial_tokens``)."""
+    init, sot_index, n_prefix = build_initial_tokens(cfg, opts, prompt_tokens, prefix_tokens,
+                                                     bucket)
     ts_in_prefix = [int(t) for t in init[len(init) - n_prefix :] if t >= cfg.timestamp_begin]
     max_new, max_new_cap = plan_decode_budget(cfg, opts, int(init.shape[0]), n_prefix)
     if force_draft_bucket:
@@ -707,6 +732,53 @@ def plan_window(
     )
     draft_max = DRAFT_MAX if (draft_tokens or force_draft_bucket) else 0
     return WindowPlan(init, n_prefix, max_new, draft_max, aux)
+
+
+def batch_draft_bucket(rows: list[WindowPlan]) -> int:
+    """The draft slots of one batched decode: DRAFT_MAX only when EVERY row
+    carries a draft. Acceptance is the batch minimum (``_prefill``), so one
+    draft-less row (a new or reset stream, common in serving groups) would
+    accept nothing for the whole group while every row still paid the
+    DRAFT_MAX prefill span."""
+    return DRAFT_MAX if all(row.aux[AUX_TOK + 5] > 0 for row in rows) else 0
+
+
+@dataclasses.dataclass(frozen=True)
+class BatchPlan:
+    """The decode plan of B streams' windows at one prefill bucket ``p``:
+    each row's own plan (its initial tokens at length p, forced prefix, cap
+    and draft in its aux row), and the loop bound ``max_new``, the largest
+    of the rows'."""
+
+    rows: list[WindowPlan]
+    p: int
+    max_new: int
+
+    @property
+    def draft_max(self) -> int:
+        return batch_draft_bucket(self.rows)
+
+    @property
+    def cap(self) -> int:
+        """The largest of the rows' exact caps, as their aux rows hold them now."""
+        return max(row.cap for row in self.rows)
+
+    @property
+    def aux(self) -> np.ndarray:
+        """(B, AUX_LEN) f32: the rows' aux bundles."""
+        return np.stack([row.aux for row in self.rows])
+
+
+def plan_batch_aux(cfg: WhisperConfig, opts: DecodeOptions, requests: list[dict]) -> BatchPlan:
+    """The host half of a batched decode: each request's window plan at one
+    common prefill bucket (the largest of the rows' own). A request is
+    ``{"prompt_tokens", "prefix_tokens", "draft_tokens"}``, each optional;
+    the rows may be at different streaming states."""
+    p = _bucket(max(build_initial_tokens(cfg, opts, r.get("prompt_tokens"),
+                                         r.get("prefix_tokens"))[0].shape[0] for r in requests))
+    rows = [plan_window(cfg, opts, r.get("prompt_tokens"), r.get("prefix_tokens"),
+                        r.get("draft_tokens"), bucket=p) for r in requests]
+    return BatchPlan(rows, p, max(row.max_new for row in rows))
 
 
 @dataclasses.dataclass
@@ -723,7 +795,7 @@ class DecodeHandle:
     ready: Optional[torch.cuda.Event]
     done: Optional[torch.cuda.Event]
     cfg: WhisperConfig
-    plan: WindowPlan
+    plan: "WindowPlan | BatchPlan"  # a window's, or a batched decode's
     b: int
     audio_ctx: int
     capture: bool
@@ -772,25 +844,26 @@ def greedy_decode_dispatch(
     ``DecodeLoop`` when None: pass the same one to every window of a model
     to reuse its graphs), on the CPU uncaptured."""
     b = xa.shape[0]
+    return _dispatch(model, xa, opts, plan, aux.reshape(-1, AUX_LEN).expand(b, AUX_LEN),
+                     extra_suppress, alignment_heads, loop, phase_timer)
+
+
+def _dispatch(model, xa, opts, plan, aux, extra_suppress, alignment_heads, loop,
+              phase_timer) -> DecodeHandle:
     loop = loop or DecodeLoop()
-    packed = _decode_window(model, opts, xa, aux.reshape(-1, AUX_LEN).expand(b, AUX_LEN), plan,
-                            tuple(extra_suppress), alignment_heads, loop,
-                            captured=xa.device.type == "cuda")
+    packed = _decode_window(model, opts, xa, aux, plan, tuple(extra_suppress), alignment_heads,
+                            loop, captured=xa.device.type == "cuda")
     host, ready, done = _copy_to_host(packed, loop)
-    return DecodeHandle(packed, host, ready, done, model.cfg, plan, b, xa.shape[1],
+    return DecodeHandle(packed, host, ready, done, model.cfg, plan, xa.shape[0], xa.shape[1],
                         opts.word_timestamps, phase_timer)
 
 
-def greedy_decode_finalize(handle: DecodeHandle) -> DecodeResult:
-    """Wait for the dispatched window's result copy (its one wait; nothing
-    else touches the card) and unpack it. Returns tokens = prefix + sampled
-    (xattn rows aligned), so callers parse one transcript regardless of how
-    much was forced.
-
-    ``phase_timer`` (``utils.profiling.PhaseTimer``, from the dispatch), when
-    given, laps ``decode`` once the card has finished the loop and
+def _fetch(handle: DecodeHandle) -> np.ndarray:
+    """Wait for a dispatched decode's result copy (its one wait; nothing
+    else touches the card) -> the packed result on the host. With a
+    ``phase_timer``, laps ``decode`` once the card has finished the loop and
     ``download`` after the copy."""
-    pt, plan, b = handle.phase_timer, handle.plan, handle.b
+    pt = handle.phase_timer
     if pt is not None and handle.ready is not None:
         handle.ready.synchronize()
     if pt is not None:
@@ -800,8 +873,20 @@ def greedy_decode_finalize(handle: DecodeHandle) -> DecodeResult:
     flat = handle.host.numpy()
     if pt is not None:
         pt.lap("download")
-    rows = _unpack_packed_rows(flat, handle.cfg, b, len(plan.init), plan.max_new, handle.capture,
-                               handle.audio_ctx, [plan.prefix] * b)
+    return flat
+
+
+def greedy_decode_finalize(handle: DecodeHandle) -> DecodeResult:
+    """Wait for the dispatched window's result copy and unpack it
+    (``_fetch``). Returns tokens = prefix + sampled (xattn rows aligned), so
+    callers parse one transcript regardless of how much was forced.
+
+    ``phase_timer`` (``utils.profiling.PhaseTimer``, from the dispatch), when
+    given, laps ``decode`` once the card has finished the loop and
+    ``download`` after the copy."""
+    plan, b = handle.plan, handle.b
+    rows = _unpack_packed_rows(_fetch(handle), handle.cfg, b, plan.p, plan.max_new,
+                               handle.capture, handle.audio_ctx, [plan.prefix] * b)
     lengths = np.array([r[1] for r in rows], np.int64)
     sum_lp = np.array([r[2] for r in rows], np.float64)
     return DecodeResult(
@@ -829,6 +914,67 @@ def greedy_decode(
     ``greedy_decode_finalize(greedy_decode_dispatch(...))``."""
     return greedy_decode_finalize(greedy_decode_dispatch(
         model, xa, opts, plan, aux, extra_suppress, alignment_heads, loop, phase_timer))
+
+
+def greedy_decode_batch_dispatch(
+    model: Whisper,
+    xa: torch.Tensor,
+    opts: DecodeOptions,
+    plan: BatchPlan,
+    aux: Optional[torch.Tensor] = None,
+    extra_suppress: tuple[int, ...] = (),
+    alignment_heads: Optional[np.ndarray] = None,
+    loop: Optional[DecodeLoop] = None,
+    phase_timer=None,
+) -> DecodeHandle:
+    """The dispatch half of a batched decode: B streams' windows, one row
+    each of ``xa`` (B, audio_ctx, d), decoded in one loop (one graph of
+    batch B on the card) up to the start of the result's copy. ``aux``
+    (B, AUX_LEN) on xa's device holds the rows' own aux bundles (the ASR
+    uploads them with the audio); ``plan.aux`` is uploaded when None."""
+    if len(plan.rows) != xa.shape[0]:
+        raise ValueError(f"{len(plan.rows)} planned rows for a batch of {xa.shape[0]}")
+    if aux is None:
+        aux = torch.from_numpy(plan.aux).to(xa.device)
+    return _dispatch(model, xa, opts, plan, aux, extra_suppress, alignment_heads, loop,
+                     phase_timer)
+
+
+def greedy_decode_batch_finalize(handle: DecodeHandle) -> list[DecodeResult]:
+    """The finalize half of a batched decode: wait for the result's copy
+    (``_fetch``) and unpack one ``DecodeResult`` (batch 1) per row, each
+    with the row's own prefix."""
+    plan = handle.plan
+    rows = _unpack_packed_rows(_fetch(handle), handle.cfg, handle.b, plan.p, plan.max_new,
+                               handle.capture, handle.audio_ctx, [r.prefix for r in plan.rows])
+    results = []
+    for (full, length, lp, nsp, xattn), row in zip(rows, plan.rows):
+        results.append(DecodeResult(
+            tokens=full[None], lengths=np.array([length], np.int64),
+            sum_logprob=np.array([lp], np.float64),
+            avg_logprob=np.array([lp / max(length - row.n_prefix, 1)], np.float64),
+            no_speech_prob=np.asarray([nsp]), xattn=None if xattn is None else xattn[None]))
+    return results
+
+
+def greedy_decode_batch(
+    model: Whisper,
+    xa: torch.Tensor,
+    opts: DecodeOptions,
+    requests: list[dict],
+    **kw,
+) -> list[DecodeResult]:
+    """Batched multi-stream greedy decode: B streams' windows in one loop.
+
+    Each request (``plan_batch_aux``) may be at a different streaming state:
+    per-row prefixes, initial-rule gating and caps ride in the (B, AUX_LEN)
+    aux rows, and every row shares one prefill bucket (bucket padding is
+    inert, ``build_initial_tokens``). The rows share one position, so the
+    draft acceptance is the batch minimum. The capacity lever: a decode step
+    at batch 1 streams all the decoder's weights for one row, so B rows cost
+    little more than one."""
+    plan = plan_batch_aux(model.cfg, opts, requests)
+    return greedy_decode_batch_finalize(greedy_decode_batch_dispatch(model, xa, opts, plan, **kw))
 
 
 def _unpack_packed_rows(flat, cfg, b, p, max_new, capture, audio_ctx, prefix_rows):

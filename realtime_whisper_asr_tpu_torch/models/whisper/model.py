@@ -476,3 +476,14 @@ def init_params(cfg: WhisperConfig, generator: torch.Generator,
         model.encoder.pos_emb.copy_(
             torch.from_numpy(_sinusoids(cfg.n_audio_ctx, cfg.n_audio_state)))
     return model
+
+
+def encoder_flops(cfg: WhisperConfig, n_tokens: int) -> int:
+    """Hand-counted matmul FLOPs of one encode of ``n_tokens`` output
+    positions (mel frames / 2): per layer the four attention projections,
+    the MLP and the two attention products; the conv stem's two k = 3
+    convolutions at 2t (stride 1) and t (stride 2) positions."""
+    d, ff, t, n_layer = cfg.n_audio_state, 4 * cfg.n_audio_state, n_tokens, cfg.n_audio_layer
+    per_layer = 4 * 2 * t * d * d + 2 * 2 * t * d * ff + 2 * 2 * t * t * d
+    stem = 2 * (2 * t) * 3 * cfg.n_mels * d + 2 * t * 3 * d * d
+    return n_layer * per_layer + stem

@@ -1,0 +1,550 @@
+"""Multi-stream serving: N concurrent streams over one shared model on the card.
+
+Port of ``realtime_whisper_asr_tpu/serving.py``. Design:
+
+- ONE ``TorchWhisperASR`` (weights loaded once) shared by all streams; each
+  stream owns its host pipeline (VAC/online processor, skip detector) and a
+  device audio ring inside the ASR keyed by its id, so switching streams
+  costs nothing beyond its own window state.
+- cooperative round-robin: ``step()`` runs one scheduling round over the
+  streams with enough buffered voice; callers drive it from their event
+  loop, or ``serve_forever`` runs it on a thread. Same-language regular
+  ticks ride one batched tick (``asr.transcribe_batch_dispatch``: one
+  upload, one encode of B rows, one decode loop of batch B), dispatched
+  before the previous round's groups are finalized.
+- per-stream backpressure via PerformanceMonitor: when the card falls
+  behind, the server skips recognition ticks, with a probe tick after
+  ``max_consecutive_sheds`` so the monitor's window refreshes.
+
+Diarization, the separation frontend and batched beam search are not
+ported yet: ``diarize=True``, a ``separator`` and a ``beam_size`` above 1
+raise ``NotImplementedError``.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import itertools
+import logging
+import threading
+import time
+from collections import deque
+from typing import Callable, Optional
+
+import numpy as np
+import torch
+
+from realtime_whisper_asr_tpu_torch.pipeline import SkipDetector
+from realtime_whisper_asr_tpu_torch.services import PerformanceMonitor
+from realtime_whisper_asr_tpu_torch.streaming import (
+    OnlineASRProcessor,
+    VACOnlineASRProcessor,
+    VADIterator,
+)
+
+logger = logging.getLogger(__name__)
+
+SR = 16000
+
+
+@dataclasses.dataclass
+class StreamResult:
+    stream_id: int
+    begin: float
+    end: float
+    text: str
+    #: speaker label; None until diarization is ported (ROADMAP queue 1
+    #: item 13). The transports already carry it.
+    speaker: Optional[str] = None
+
+
+class _Stream:
+    def __init__(self, sid: int, processor, skip_detector, clock):
+        self.sid = sid
+        self.processor = processor
+        self.skip_detector = skip_detector
+        self.clock = clock
+        self.pending_audio: deque[np.ndarray] = deque()
+        self.buffered_samples = 0
+        self.results: deque[StreamResult] = deque()
+        self.closed = False
+        self.ticks = 0
+        self.skipped_ticks = 0
+        self.consecutive_sheds = 0
+        self.audio_since_tick = 0.0  # seconds drained but not yet transcribed
+        self.language: Optional[str] = None
+        self.inflight = False  # a dispatched tick awaits finalize
+
+
+def _hbm_safe_batch(cfg, param_bytes: int, hbm_bytes: Optional[int]) -> Optional[int]:
+    """Largest per-dispatch decode batch whose working set fits device
+    memory, or None when the device's memory size is unknown (the CPU).
+
+    The pipelined scheduler keeps up to TWO dispatched tick groups alive on
+    the device at once (step() dispatches round N+1 before finalizing round
+    N), and each batch row of a dispatched tick holds bf16 cross-attention
+    K/V for the full encoder context plus self K/V and encoder transients.
+    The JAX package calibrated the constants (15 % held back, 3 GiB of
+    program buffers) on a 16 GB TPU v5e, where large-v3 ``int8-all`` served
+    2 x 16 rows and failed at 2 x 17; the formula is kept as it is here.
+    The port's CUDA graph pool and each loop shape's state buffers are
+    per-row costs it does not count.
+    """
+    if not hbm_bytes or cfg is None:
+        return None
+    budget = int(hbm_bytes * 0.85) - int(param_bytes) - 3 * 2**30
+    return max(1, budget // (2 * _row_bytes(cfg)))
+
+
+def _row_bytes(cfg) -> int:
+    """``_hbm_safe_batch``'s working set of one batch row of one dispatched
+    group: bf16 cross K/V over the full encoder context, bf16 self K/V over
+    a conservative 256-token context, and the encoder's transients."""
+    d = cfg.n_text_state
+    cross_kv = int(2 * cfg.n_text_layer * cfg.n_audio_ctx * d * 2.0)
+    self_kv = int(2 * cfg.n_text_layer * 256 * d * 2.0)
+    enc_transient = 4 * cfg.n_audio_ctx * d * 2
+    return cross_kv + self_kv + enc_transient
+
+
+def _device_batch_cap(asr) -> Optional[int]:
+    """``_hbm_safe_batch`` for a model on the card: its parameter and
+    buffer bytes (the int8/int4 weights are buffers) and the card's memory;
+    None for a backend without a model or one on the CPU."""
+    model = getattr(asr, "model", None)
+    cfg = getattr(asr, "cfg", None)
+    device = getattr(asr, "device", None)
+    if model is None or cfg is None or device is None or torch.device(device).type != "cuda":
+        return None
+    nbytes = sum(t.numel() * t.element_size()
+                 for t in itertools.chain(model.parameters(), model.buffers()))
+    return _hbm_safe_batch(cfg, nbytes, torch.cuda.get_device_properties(device).total_memory)
+
+
+def _silero_factory(device) -> Callable[[], object]:
+    """A factory of Silero-like VADs on ``device`` sharing ONE net with the
+    packaged weights, loaded once: each stream's VAD keeps its own LSTM
+    state, and N streams hold one copy of the net."""
+    from realtime_whisper_asr_tpu_torch.models.vad import SileroLikeVAD
+
+    net = SileroLikeVAD(device=device).net
+    return lambda: SileroLikeVAD(net=net)
+
+
+class StreamServer:
+    def __init__(
+        self,
+        asr,
+        vad_factory: Optional[Callable[[], object]] = None,
+        online_chunk_size: float = 1.0,
+        agreement_n: int = 2,
+        prefix_policy: str = "agree2",
+        min_silence_duration_ms: int = 500,
+        use_vad: bool = True,
+        max_consecutive_sheds: int = 3,
+        max_batch: int = 8,
+        diarize: bool = False,
+        separator=None,
+        clock: Callable[[], float] = time.monotonic,
+    ):
+        if diarize:
+            raise NotImplementedError("diarization is not ported yet (ROADMAP queue 1 item 13)")
+        if separator is not None:
+            raise NotImplementedError("the separation frontend is not ported yet "
+                                      "(ROADMAP queue 1 item 13)")
+        if getattr(asr, "transcribe_kargs", {}).get("beam_size", 1) > 1:
+            raise NotImplementedError("batched beam search is not ported yet "
+                                      "(ROADMAP queue 1 item 12)")
+        #: memory-derived ceiling on the per-dispatch batch (None: unknown
+        #: memory). A larger max_batch is clamped, not honored-then-OOM: the
+        #: scheduler still serves every stream by splitting each round into
+        #: cap-sized groups.
+        self.device_batch_cap = _device_batch_cap(asr)
+        if self.device_batch_cap is not None and max_batch > self.device_batch_cap:
+            logger.warning(
+                "max_batch %d exceeds the memory-safe decode batch %d for this "
+                "model/device; clamping (streams beyond the cap are served in "
+                "additional per-round groups)",
+                max_batch, self.device_batch_cap,
+            )
+            max_batch = self.device_batch_cap
+        self.max_batch = max_batch
+        self.max_consecutive_sheds = max_consecutive_sheds
+        self.asr = asr
+        # streams created with language=None must not inherit whatever language
+        # the previously active stream set on the shared ASR
+        self._default_language = getattr(asr, "original_language", None)
+        self.clock = clock
+        self.use_vad = use_vad
+        self.online_chunk_size = online_chunk_size
+        self.agreement_n = agreement_n
+        self.prefix_policy = prefix_policy
+        self.min_silence_duration_ms = min_silence_duration_ms
+        if vad_factory is None and use_vad:
+            vad_factory = _silero_factory(getattr(asr, "device", "cuda"))
+        self.vad_factory = vad_factory
+        self.streams: dict[int, _Stream] = {}
+        self.monitor = PerformanceMonitor()
+        self._ids = itertools.count(1)
+        self._rr: deque[int] = deque()  # round-robin order
+        self._lock = threading.Lock()  # guards queues/results/rr/stream maps
+        self._asr_lock = threading.Lock()  # serializes shared-ASR access
+        #: dispatched-but-not-finalized tick groups (guarded by _asr_lock):
+        #: step() dispatches this round's groups BEFORE finalizing last
+        #: round's, so group N+1's upload, encode and decode queue on the card
+        #: behind group N's decode.
+        self._inflight: list[dict] = []
+        #: tick groups lost to a swallowed transcribe/dispatch/finalize
+        #: exception (the group is reset and keeps serving), surfaced in
+        #: get_stats so a systematically failing backend is visible.
+        self.group_failures = 0
+        self._stop = threading.Event()
+        self._thread: Optional[threading.Thread] = None
+
+    # ----------------------------------------------------------------- streams
+
+    def create_stream(self, language: Optional[str] = None) -> int:
+        online = OnlineASRProcessor(
+            self.asr,
+            agreement_n=self.agreement_n,
+            prefix_policy=self.prefix_policy,
+            clock=self.clock,
+        )
+        if self.use_vad:
+            processor = VACOnlineASRProcessor(
+                online,
+                VADIterator(self.vad_factory(),
+                            min_silence_duration_ms=self.min_silence_duration_ms),
+                online_chunk_size=self.online_chunk_size,
+            )
+        else:
+            processor = online
+        sid = next(self._ids)
+        # route this processor's upload prefetches to its own device ring
+        # (the shared ASR's "active stream" only tracks the ticking stream)
+        online.stream_key = sid
+        stream = _Stream(sid, processor, SkipDetector(clock=self.clock), self.clock)
+        stream.language = language
+        with self._lock:
+            self.streams[sid] = stream
+            self._rr.append(sid)
+        logger.info("stream %d created (language=%s)", sid, language)
+        return sid
+
+    def _get_open(self, stream_id: int) -> _Stream:
+        s = self.streams.get(stream_id)
+        if s is None or s.closed:
+            raise ValueError(f"stream {stream_id} is closed or unknown")
+        return s
+
+    def feed(self, stream_id: int, chunk: np.ndarray) -> None:
+        with self._lock:
+            s = self._get_open(stream_id)
+            s.pending_audio.append(np.asarray(chunk, np.float32))
+            s.buffered_samples += len(chunk)
+
+    def poll(self, stream_id: int) -> list[StreamResult]:
+        with self._lock:
+            s = self.streams.get(stream_id)
+            if s is None:
+                return []
+            out = list(s.results)
+            s.results.clear()
+        return out
+
+    def close_stream(self, stream_id: int) -> list[StreamResult]:
+        """Final flush (transcribes any remaining audio); returns remaining
+        results and forgets the stream."""
+        with self._lock:
+            s = self._get_open(stream_id)
+            s.closed = True  # feed() rejects from here on
+            if stream_id in self._rr:
+                self._rr.remove(stream_id)
+        with self._asr_lock:
+            # a dispatched tick may still be in flight for this (or any)
+            # stream — settle it before the final flush
+            self._flush_inflight_locked()
+            self._drain_into_processor(s)
+            self._activate(s)
+            # run a final transcription tick over whatever audio remains —
+            # finish() only flushes already-hypothesized words. Loop because
+            # VAC may hold a STAGED utterance (_pending: end+start inside the
+            # client's last chunk): each finish() hands one over; a single
+            # pass would silently drop its transcript.
+            inner = getattr(s.processor, "online", s.processor)
+            for _ in range(8):  # staged utterances hand over one per finish()
+                if len(getattr(inner, "audio_buffer", ())) > 0:
+                    beg, end, text = inner.process_iter()
+                    if hasattr(s.processor, "current_online_chunk_buffer_size"):
+                        # this WAS the head tick — don't let VAC.finish()
+                        # re-run the same buffer (it gates on this counter)
+                        s.processor.current_online_chunk_buffer_size = 0
+                    self._emit(s, beg, end, text)
+                had_pending = bool(getattr(s.processor, "_pending", None))
+                beg, end, text = s.processor.finish()
+                self._emit(s, beg, end, text)
+                if not had_pending:
+                    break
+            if hasattr(self.asr, "drop_stream"):
+                self.asr.drop_stream(stream_id)
+        out = self.poll(stream_id)
+        with self._lock:
+            self.streams.pop(stream_id, None)  # no leaks on stream churn
+        return out
+
+    # -------------------------------------------------------------- scheduling
+
+    def _activate(self, s: _Stream) -> None:
+        if hasattr(self.asr, "set_active_stream"):
+            self.asr.set_active_stream(s.sid)
+        if hasattr(self.asr, "original_language"):
+            self.asr.original_language = (
+                s.language if s.language is not None else self._default_language
+            )
+
+    def _drain_into_processor(self, s: _Stream) -> None:
+        while True:
+            with self._lock:
+                if not s.pending_audio:
+                    return
+                chunk = s.pending_audio.popleft()
+                s.buffered_samples -= len(chunk)
+            s.audio_since_tick += len(chunk) / SR
+            s.processor.insert_audio_chunk(chunk)
+
+    def _emit(self, s: _Stream, beg, end, text) -> None:
+        if not text:
+            return
+        skip, _ = s.skip_detector.should_skip(text, self.clock())
+        if skip:
+            return
+        with self._lock:
+            s.results.append(StreamResult(s.sid, beg, end, text))
+
+    def _collect_ready(self) -> list[_Stream]:
+        """Pick up to max_batch ready streams in round-robin order."""
+        with self._lock:
+            order = list(self._rr)
+        out: list[_Stream] = []
+        for sid in order:
+            with self._lock:
+                s = self.streams.get(sid)
+                # readiness = pending audio OR audio already drained into the
+                # processor by a shed tick that still awaits transcription;
+                # a stream with a dispatched tick in flight is not re-ticked
+                if s is None or s.closed or s.inflight or (
+                    s.buffered_samples < 1 and s.audio_since_tick <= 0
+                ):
+                    continue
+                # rotate under the lock; a concurrent close may have removed it
+                try:
+                    self._rr.remove(sid)
+                    self._rr.append(sid)
+                except ValueError:
+                    continue
+            out.append(s)
+            if len(out) >= self.max_batch:
+                break
+        return out
+
+    def _tick_single(self, s: _Stream) -> None:
+        self._activate(s)
+        t0 = self.clock()
+        beg, end, text = s.processor.process_iter()
+        dt = self.clock() - t0
+        s.ticks += 1
+        # every real tick updates the window, with the audio actually
+        # processed since the last tick (not the committed-word span)
+        self.monitor.record_recognition(max(s.audio_since_tick, 1e-3), max(dt, 1e-6))
+        s.audio_since_tick = 0.0
+        self._emit(s, beg, end, text)
+
+    def _reset_group(self, group: list[_Stream]) -> None:
+        for s in group:
+            s.inflight = False
+            inner = getattr(s.processor, "online", s.processor)
+            inner.init(offset=inner.buffer_time_offset
+                       + len(inner.audio_buffer) / SR)
+
+    def _requests(self, group: list[_Stream]) -> list[dict]:
+        self._activate(group[0])  # language is uniform within the group
+        reqs = []
+        for s in group:
+            r = s.processor.prepare_request()
+            r["key"] = s.sid
+            reqs.append(r)
+        return reqs
+
+    def _tick_batch(self, group: list[_Stream]) -> None:
+        """ONE batched transcribe across same-language streams: a decode
+        step at batch 1 reads all the decoder's weights for one row, so B
+        streams share one weight pass (and one upload and download)."""
+        reqs = self._requests(group)
+        t0 = self.clock()
+        try:
+            results = self.asr.transcribe_batch(reqs)
+        except Exception:
+            logger.exception("batched transcribe failed; resetting group")
+            self.group_failures += 1
+            self._reset_group(group)
+            return
+        self._apply_batch(group, results, self.clock() - t0)
+
+    def _dispatch_batch(self, group: list[_Stream]) -> Optional[dict]:
+        """Pipelined first half of _tick_batch: plan, upload, encode and the
+        decode up to its result's copy. Returns an in-flight record for
+        _finalize_batch, or None if the dispatch failed."""
+        reqs = self._requests(group)
+        t0 = self.clock()
+        try:
+            st = self.asr.transcribe_batch_dispatch(reqs)
+        except Exception:
+            logger.exception("batched dispatch failed; resetting group")
+            self.group_failures += 1
+            self._reset_group(group)
+            return None
+        for s in group:
+            s.inflight = True
+        return {"group": group, "state": st, "t0": t0}
+
+    def _finalize_batch(self, pending: dict) -> None:
+        group = pending["group"]
+        try:
+            results = self.asr.transcribe_batch_finalize(pending["state"])
+        except Exception:
+            logger.exception("batched finalize failed; resetting group")
+            self.group_failures += 1
+            self._reset_group(group)
+            return
+        for s in group:
+            s.inflight = False
+        self._apply_batch(group, results, self.clock() - pending["t0"])
+
+    def _apply_batch(self, group: list[_Stream], results, dt: float) -> None:
+        # dt spans dispatch→finalize; under pipelining it includes overlap
+        # with neighboring groups, so the per-stream share is a conservative
+        # (over-)estimate for the load-shedding monitor
+        share = dt / max(len(group), 1)
+        for s, res in zip(group, results):
+            beg, end, text = s.processor.apply_result(res, dt)
+            s.ticks += 1
+            self.monitor.record_recognition(max(s.audio_since_tick, 1e-3), max(share, 1e-6))
+            s.audio_since_tick = 0.0
+            self._emit(s, beg, end, text)
+
+    def step(self) -> bool:
+        """Run one scheduling round: drain + shed-check the ready streams,
+        batch the same-language regular ticks into one transcribe, run the
+        rest (utterance finals) individually.
+
+        Pipelining: this round's batch groups are DISPATCHED (upload, encode
+        and decode queued), then LAST round's in-flight groups are finalized,
+        so each group's result copy overlaps the next group's work. Results
+        for a group surface one ``step()`` later; callers drive ``step()`` in
+        a loop (serve_forever / ``while step()``)."""
+        candidates = self._collect_ready()
+        with self._asr_lock:
+            if not candidates and not self._inflight:
+                return False
+            did_work = False
+            pipelined = hasattr(self.asr, "transcribe_batch_dispatch")
+            batchable: list[_Stream] = []
+            singles: list[_Stream] = []
+            for s in candidates:
+                with self._lock:
+                    if s.closed:
+                        continue
+                self._drain_into_processor(s)
+                skip, why = self.monitor.should_skip_recognition(max(s.audio_since_tick, 0.1))
+                # probe-through: never shed indefinitely, or the monitor's
+                # window never refreshes and shedding becomes a deadlock
+                if skip and s.consecutive_sheds < self.max_consecutive_sheds:
+                    s.skipped_ticks += 1
+                    s.consecutive_sheds += 1
+                    logger.debug("shedding load on stream %d: %s", s.sid, why)
+                    did_work = True
+                    continue
+                s.consecutive_sheds = 0
+                proc = s.processor
+                if (
+                    hasattr(self.asr, "transcribe_batch")
+                    and hasattr(proc, "wants_tick")
+                    and hasattr(proc, "prepare_request")
+                ):
+                    if proc.wants_tick():
+                        batchable.append(s)
+                    elif getattr(proc, "is_currently_final", False) or not hasattr(
+                        proc, "is_currently_final"
+                    ):
+                        singles.append(s)
+                    # else: VAC gate not met — nothing to do this round
+                else:
+                    singles.append(s)
+            # group batchable streams by language (DecodeOptions are shared
+            # across a batch); stragglers run individually (un-pipelined mode)
+            new_inflight: list[dict] = []
+            while batchable:
+                lang = batchable[0].language
+                group = [s for s in batchable if s.language == lang]
+                batchable = [s for s in batchable if s.language != lang]
+                if pipelined:
+                    pending = self._dispatch_batch(group)
+                    if pending is not None:
+                        new_inflight.append(pending)
+                    did_work = True
+                elif len(group) == 1:
+                    singles.extend(group)
+                else:
+                    self._tick_batch(group)
+                    did_work = True
+            for s in singles:
+                self._tick_single(s)
+                did_work = True
+            # finalize LAST round's dispatches (their copies overlapped this
+            # round's dispatch and singles work)
+            for pending in self._inflight:
+                self._finalize_batch(pending)
+                did_work = True
+            self._inflight = new_inflight
+        return did_work
+
+    def _flush_inflight_locked(self) -> None:
+        """Finalize every in-flight group now (callers hold _asr_lock)."""
+        for pending in self._inflight:
+            self._finalize_batch(pending)
+        self._inflight = []
+
+    def serve_forever(self, idle_sleep: float = 0.01) -> None:
+        while not self._stop.is_set():
+            if not self.step():
+                time.sleep(idle_sleep)
+
+    def start(self) -> None:
+        if self._thread is None or not self._thread.is_alive():
+            self._stop.clear()
+            self._thread = threading.Thread(target=self.serve_forever, daemon=True,
+                                            name="rtwa-server")
+            self._thread.start()
+
+    def stop(self, timeout: float = 5.0) -> None:
+        self._stop.set()
+        if self._thread is not None:
+            self._thread.join(timeout)
+        with self._asr_lock:
+            self._flush_inflight_locked()
+
+    def get_stats(self) -> dict:
+        with self._lock:
+            return {
+                "streams": len([s for s in self.streams.values() if not s.closed]),
+                "total_streams": len(self.streams),
+                "group_failures": self.group_failures,
+                "max_batch": self.max_batch,
+                "device_batch_cap": self.device_batch_cap,
+                "monitor": self.monitor.get_status(),
+                "per_stream": {
+                    sid: {"ticks": s.ticks, "shed": s.skipped_ticks,
+                          "pending_s": s.buffered_samples / SR}
+                    for sid, s in self.streams.items()
+                },
+            }

@@ -52,14 +52,6 @@ def time_ms(fn, reps: int = 20, warmup: int = 3) -> float:
     return start.elapsed_time(end) / reps
 
 
-def encoder_flops(n_layer: int, d: int, n_mels: int, t: int) -> int:
-    """Hand-counted matmul FLOPs of one encode of ``t`` output frames (the
-    JAX package's ``model.encoder_flops``)."""
-    per_layer = 4 * 2 * t * d * d + 2 * 2 * t * d * (4 * d) + 2 * 2 * t * t * d
-    stem = 2 * (2 * t) * 3 * n_mels * d + 2 * t * 3 * d * d
-    return n_layer * per_layer + stem
-
-
 def _inputs(seed: int = 0):
     rng = np.random.default_rng(seed)
     x = torch.from_numpy(rng.standard_normal((T, D)).astype(np.float32)).cuda().bfloat16()
@@ -132,7 +124,8 @@ def section_encoder(results: dict, reps: int = 10) -> None:
     seeded random weights."""
     from realtime_whisper_asr_tpu_torch.models.whisper import quant as Q
     from realtime_whisper_asr_tpu_torch.models.whisper.config import get_config
-    from realtime_whisper_asr_tpu_torch.models.whisper.model import Whisper, init_params
+    from realtime_whisper_asr_tpu_torch.models.whisper.model import (
+        Whisper, encoder_flops, init_params)
 
     cfg = get_config("large-v3")
     rng = np.random.default_rng(1)
@@ -140,7 +133,7 @@ def section_encoder(results: dict, reps: int = 10) -> None:
     mel = mel.cuda().bfloat16()
     model = init_params(cfg, torch.Generator(device="cuda").manual_seed(0), torch.bfloat16,
                         "cuda")
-    flops = encoder_flops(cfg.n_audio_layer, cfg.n_audio_state, cfg.n_mels, T)
+    flops = encoder_flops(cfg, T)
     results["encoder_hand_gflop"] = flops / 1e9
     with torch.inference_mode():
         results["encoder_bf16_ms"] = time_ms(lambda: model.encode(mel), reps=reps)

@@ -1,13 +1,17 @@
 """The port stands alone and runs on the card unless asked otherwise.
 
 - Importing every module of ``realtime_whisper_asr_tpu_torch`` (and
-  ``chip_smoke.py``) pulls in neither ``jax`` nor the JAX package. The name
-  check is exact: the port's own name starts with the JAX package's.
-- Entry points default to CUDA and raise on a host without it.
+  ``chip_smoke.py``) pulls in neither ``jax`` nor the JAX package; nor do
+  the serving modules (``serving``, ``serving_tcp``, ``serving_ws``,
+  ``pipeline``, ``services``) alone. The name check is exact: the port's
+  own name starts with the JAX package's.
+- Entry points default to CUDA and raise on a host without it; the
+  servers' CLIs too, and they raise for flags of slices not ported yet.
 - The kernel wrappers (log-mel, packed-int4 matmul, matmul chain), the int8
   product and the quantized modules' dispatch have no ``try``/``except`` that
   could fall back from a kernel to its plain version; nor have the VAD and
-  the device audio ring one that could fall back to the CPU.
+  the device audio ring one that could fall back to the CPU. The server's
+  handlers only count a failed group and reset it.
 """
 
 import ast
@@ -69,7 +73,8 @@ def test_vad_and_ring_have_no_fallback():
     with open(asr_mod.__file__) as f:
         tree = ast.parse(f.read())
     names = {"_ring_shift_write", "_find_shift", "_plan_upload", "_sync_many",
-             "_upload_and_apply", "prefetch_audio", "_sync_audio_and_aux", "_encode_from_buf"}
+             "_upload_and_apply", "prefetch_audio", "_sync_audio_and_aux", "_encode_from_buf",
+             "_encode_many"}
     nodes = [n for n in ast.walk(tree) if getattr(n, "name", None) in names]
     assert len(nodes) == len(names)
     assert not [n for node in nodes for n in ast.walk(node) if isinstance(n, ast.Try)]
@@ -101,3 +106,80 @@ def test_quantized_linear_dispatch_has_no_fallback():
 def test_logmel_refuses_other_devices():
     with pytest.raises(ValueError, match="cuda or cpu"):
         logmel.log_mel_spectrogram(torch.zeros(16000, device="meta"))
+
+
+_IMPORT_SERVING = r"""
+import importlib, sys
+for name in ("serving", "serving_tcp", "serving_ws", "pipeline", "services"):
+    importlib.import_module("realtime_whisper_asr_tpu_torch." + name)
+bad = sorted(m for m in sys.modules
+             if m == "jax" or m.startswith("jax.") or m == "jaxlib" or m.startswith("jaxlib.")
+             or m == "realtime_whisper_asr_tpu" or m.startswith("realtime_whisper_asr_tpu."))
+sys.exit(1 if bad else 0)
+"""
+
+
+def test_serving_modules_import_no_jax():
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    proc = subprocess.run([sys.executable, "-c", _IMPORT_SERVING], cwd=ROOT, env=env,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+@pytest.mark.parametrize("args,error,match", [
+    ([], RuntimeError, "CUDA"),
+    (["--checkpoint", "ckpt"], NotImplementedError, "item 8"),
+    (["--diarize"], NotImplementedError, "item 13"),
+    (["--separation", "filter"], NotImplementedError, "item 13"),
+], ids=["no-cuda", "checkpoint", "diarize", "separation"])
+@pytest.mark.parametrize("module", ["serving_tcp", "serving_ws"])
+def test_serving_mains_refuse(monkeypatch, module, args, error, match):
+    """The servers' CLIs build the ASR on the card (and raise without CUDA),
+    and raise for the flags of slices not ported yet."""
+    import importlib
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    mod = importlib.import_module("realtime_whisper_asr_tpu_torch." + module)
+    with pytest.raises(error, match=match):
+        mod.main(["--model", "test-tiny", "--port", "0"] + args)
+
+
+@pytest.mark.parametrize("module", ["serving_tcp", "serving_ws"])
+def test_serving_flags_are_all_read(module):
+    """Every flag a server's CLI accepts is read by the code that builds the
+    server: none is parsed and then ignored."""
+    import importlib
+    import inspect
+
+    from realtime_whisper_asr_tpu_torch import serving_tcp
+
+    mod = importlib.import_module("realtime_whisper_asr_tpu_torch." + module)
+    source = inspect.getsource(serving_tcp._stream_server) + inspect.getsource(mod.main)
+    dests = [a.dest for a in serving_tcp._parser("x", 0)._actions if a.dest != "help"]
+    assert dests and all(f"args.{d}" in source for d in dests), dests
+
+
+def test_server_has_no_fallback():
+    """The server's only handlers: the round-robin rotate racing a close
+    (``ValueError``), and the three group handlers, which count the failure
+    and reset the group; none calls the backend again."""
+    from realtime_whisper_asr_tpu_torch import serving
+
+    with open(serving.__file__) as f:
+        tree = ast.parse(f.read())
+    owners = {}
+    for fn in ast.walk(tree):
+        if isinstance(fn, ast.FunctionDef):
+            for node in ast.walk(fn):
+                if isinstance(node, ast.Try):
+                    owners[node] = fn.name
+    assert sorted(owners.values()) == ["_collect_ready", "_dispatch_batch", "_finalize_batch",
+                                       "_tick_batch"]
+    for node, name in owners.items():
+        (handler,) = node.handlers
+        text = ast.unparse(handler)
+        if name == "_collect_ready":
+            assert ast.unparse(handler.type) == "ValueError"
+            continue
+        assert "self.group_failures += 1" in text and "self._reset_group(group)" in text
+        assert "asr" not in text.replace("batched", "")
