@@ -32,7 +32,7 @@ Phases, each failing the run with a non-zero exit:
      must come back verbatim);
      then pipelined ticks on the same ASR and graphs: the 8 s stream under
      prefix policy "last", synchronous, exact and async (the device draft)
-     in three rounds taken in turns, with K1 launched in each stream; exact
+     in two rounds taken in turns, with K1 launched in each stream; exact
      must commit the synchronous stream's words bit for bit and every async
      run the same words, no exception swallowed; per mode process_iter
      p50/p95, the dispatch-to-apply latency, dispatch and finalize host ms
@@ -47,7 +47,9 @@ Phases, each failing the run with a non-zero exit:
      profiler count of the kernels one large-v3 ``Int4Linear``
      forward launches at M = 1 and M = 800 (at most 2);
   7. golden parity of the quantized tiers at f32: ``int8-all`` and ``int4``
-     on the golden weights reproduce the recorded matrix rows;
+     on the golden weights reproduce the recorded matrix rows, and the
+     ``prequant`` row: the ``int8-all`` model saved in the port's native
+     format and reloaded as a pre-quantized artifact;
   8. the int4 tier at full width: phase 5's run with large-v3 quantized at
      load, K2's launches (replays included) equal to the count the model's
      structure predicts (per layer, 2 cross-K/V linears per encoded window
@@ -85,8 +87,20 @@ Phases, each failing the run with a non-zero exit:
      aggregate RTF, ticks, new tokens, no group failure, batch sizes,
      dispatch ms, captures, K1 launches = rows encoded, peak memory per row
      beside ``_hbm_safe_batch``'s estimate, the decode's kernel split at
-     B = 8 and 1; the int4 tier at N = 8 over 8 s with K2's launches equal
-     to the prediction and every K2 path held in phase 6.
+     B = 8 and 1; the ``int8-kv`` tier at N = 8 (RTF, its step's kernel
+     split beside ``int8-all``'s); for both tiers the measured growth a row
+     at most ``serving._row_bytes`` and the allocator's fragmentation and
+     the memory outside it within the cap's constants; the int4 tier at
+     N = 8 over 8 s with K2's launches equal to the prediction and every K2
+     path held in phase 6;
+ 13. checkpoints (``phase_checkpoint``): a seeded large-v3 written as an HF
+     directory in bf16 by the port's writer and loaded bit for bit through
+     ``TorchWhisperASR(checkpoint_dir=)``, alignment heads included;
+     converted by the port's ``tools/convert_checkpoint.py`` to ``int8-all``
+     and ``int4`` artifacts, each token-identical to quantizing at load
+     (K2's launches as predicted for int4); ``int8-kv`` from the same
+     directory, its graph path bit-equal to the uncaptured loop at the 16 s
+     and 30 s windows.
 Prints each phase's seconds, one ``{"kernels": [...]}`` line, then as the
 last line
 ``{"ok": true, "device": {...}}``. Exits non-zero without a result when CUDA
@@ -96,6 +110,7 @@ is absent. Imports nothing of JAX.
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import json
 import logging
 import math
@@ -225,6 +240,27 @@ def time_cuda_ms(fn, reps: int = 30, cold: bool = True) -> float:
         end.synchronize()
         times.append(start.elapsed_time(end))
     return float(np.median(times))
+
+
+def sync_device(device) -> None:
+    """Wait for ``device`` (a no-op on the CPU, where the phases rehearse)."""
+    from realtime_whisper_asr_tpu_torch.utils.profiling import sync_device as sync
+
+    sync(torch_device(device))
+
+
+def empty_device_cache(device) -> None:
+    """Return the card's cached blocks to it (a no-op on the CPU)."""
+    import torch
+
+    if torch_device(device).type == "cuda":
+        torch.cuda.empty_cache()
+
+
+def torch_device(device):
+    import torch
+
+    return torch.device(device)
 
 
 class FailOnLog(logging.Handler):
@@ -793,16 +829,7 @@ def phase_full_width(guard: FailOnLog, quantization: str | None = None) -> dict:
     # tokens rows). The loop's steps (B = 1 row each) are counted by the
     # DecodeLoop: its warm-up steps run, a capture records launches and runs
     # none, and each replay runs K steps
-    rows = {"windows": [], "spans": []}
-    for name, key in (("precompute_cross_kv", "windows"), ("decode_span", "spans")):
-        inner = getattr(asr.model, name)
-
-        def counted(first, *args, _inner=inner, _key=key, **kwargs):
-            rows[_key].append(first.shape[0] * first.shape[1] if _key == "windows"
-                              else first.numel())
-            return _inner(first, *args, **kwargs)
-
-        setattr(asr.model, name, counted)
+    rows = count_k2_rows(asr.model)
     offline_audio = np.concatenate([golden_audio(i) for i in range(2)])  # 16 s
     stream_audio = golden_audio(2)  # 8 s
     torch.cuda.reset_peak_memory_stats()
@@ -1001,8 +1028,9 @@ def check_k2_launches(label: str, asr, rows: dict, graphs: dict, launched: int,
 
 #: rounds of the bf16 pipelined phase: each round streams synchronously,
 #: exact and async, in an order that turns from round to round, so the
-#: modes' host-clock times are compared in turns within one call
-PIPELINE_ROUNDS = 3
+#: modes' host-clock times are compared in turns within one call (3 until
+#: the checkpoint and int8-kv phases needed the time)
+PIPELINE_ROUNDS = 2
 
 
 def phase_pipelined(asr, guard: FailOnLog, label: str, rows: dict, int4: bool) -> None:
@@ -1166,6 +1194,237 @@ def check_graph_equals_uncaptured(asr, label: str, *clips: np.ndarray) -> None:
                                  f"top-2 logit margin {float(top2[0] - top2[1]):.4g}")
     print(f"{label}: graph path bit-equal to the uncaptured loop on the card: "
           + "; ".join(done))
+
+
+#: port state-dict names -> HF names (``load.py`` maps them the other way);
+#: the fused ``attn.qkv`` splits into q/k/v, its zero key bias dropped
+_HF_NAMES = (("encoder.pos_emb", "encoder.embed_positions.weight"),
+             ("encoder.ln_post.", "encoder.layer_norm."),
+             ("decoder.tok_emb", "decoder.embed_tokens.weight"),
+             ("decoder.pos_emb", "decoder.embed_positions.weight"),
+             ("decoder.ln.", "decoder.layer_norm."), (".blocks.", ".layers."),
+             (".attn_ln.", ".self_attn_layer_norm."), (".attn.out.", ".self_attn.out_proj."),
+             (".mlp_ln.", ".final_layer_norm."), (".cross_ln.", ".encoder_attn_layer_norm."),
+             (".cross.query.", ".encoder_attn.q_proj."), (".cross.key.", ".encoder_attn.k_proj."),
+             (".cross.value.", ".encoder_attn.v_proj."), (".cross.out.", ".encoder_attn.out_proj."))
+
+
+def hf_state_from_port(state: dict) -> dict:
+    """A dense port state dict under HF ``WhisperModel`` names (views of its
+    tensors, wherever they lie)."""
+    out = {}
+    for key, t in state.items():
+        if ".attn.qkv." in key:
+            head = key.split(".attn.qkv.")[0].replace(".blocks.", ".layers.") + ".self_attn."
+            parts = t.chunk(3, dim=0)
+            for proj, part in zip("qkv", parts):
+                if key.endswith("weight") or proj != "k":
+                    out[f"{head}{proj}_proj.{key.rsplit('.', 1)[1]}"] = part
+            continue
+        for ours, theirs in _HF_NAMES:
+            key = key.replace(ours, theirs)
+        out[key] = t
+    return out
+
+
+def write_hf_dir(path: str, cfg, state: dict, alignment_heads: list) -> int:
+    """An HF-layout checkpoint directory of ``state`` (config.json,
+    model.safetensors by the port's writer, generation_config.json with
+    ``alignment_heads``) -> the safetensors file's bytes."""
+    from realtime_whisper_asr_tpu_torch.models.whisper.safetensors_io import write_safetensors
+
+    os.makedirs(path, exist_ok=True)
+    hf_cfg = {"num_mel_bins": cfg.n_mels, "max_source_positions": cfg.n_audio_ctx,
+              "d_model": cfg.n_audio_state, "encoder_attention_heads": cfg.n_audio_head,
+              "encoder_layers": cfg.n_audio_layer, "vocab_size": cfg.n_vocab,
+              "max_target_positions": cfg.n_text_ctx,
+              "decoder_attention_heads": cfg.n_text_head, "decoder_layers": cfg.n_text_layer}
+    with open(os.path.join(path, "config.json"), "w") as f:
+        json.dump(hf_cfg, f)
+    with open(os.path.join(path, "generation_config.json"), "w") as f:
+        json.dump({"alignment_heads": alignment_heads}, f)
+    return write_safetensors(os.path.join(path, "model.safetensors"), hf_state_from_port(state))
+
+
+def count_k2_rows(model) -> dict:
+    """Record the rows of every K2 call site of ``model`` from now on: per
+    encoded window the cross-K/V linears (B x audio_ctx rows, ``windows``),
+    per prefill span the six block linears (B x tokens rows, ``spans``)."""
+    rows = {"windows": [], "spans": []}
+    for name, key in (("precompute_cross_kv", "windows"), ("decode_span", "spans")):
+        inner = getattr(model, name)
+
+        def counted(first, *args, _inner=inner, _key=key, **kwargs):
+            rows[_key].append(first.shape[0] * first.shape[1] if _key == "windows"
+                              else first.numel())
+            return _inner(first, *args, **kwargs)
+
+        setattr(model, name, counted)
+    return rows
+
+
+def _states_equal(a: dict, b: dict) -> list:
+    """The keys where two state dicts differ (bit for bit, any device)."""
+    import torch
+
+    def bits(t):
+        return t.view(torch.int16) if t.dtype == torch.bfloat16 else t
+
+    return sorted(set(a) ^ set(b)) + [k for k in a if k in b and not torch.equal(
+        bits(a[k]), bits(b[k].to(a[k].device)))]
+
+
+def checkpoint_heads(cfg) -> list:
+    """The alignment heads written into the checkpoint's generation_config.json."""
+    last, half, h = cfg.n_text_layer - 1, cfg.n_text_layer // 2, cfg.n_text_head
+    return [[half, 0], [last, 1], [last, h - 1]]
+
+
+def phase_checkpoint(guard: FailOnLog, model_size: str = "large-v3",
+                     device: str = "cuda") -> dict:
+    """Checkpoint loading and pre-quantized artifacts at full width, then
+    ``int8-kv`` on the checkpoint's model:
+
+    1. a seeded random-weight model (seed 0) written as an HF directory in
+       bf16 by the port's own safetensors writer, with alignment heads in
+       its generation_config.json; loaded through
+       ``TorchWhisperASR(checkpoint_dir=)``: every leaf bit-equal to the
+       seeded state, the alignment mask the file's;
+    2. converted by the port's ``tools/convert_checkpoint.py`` to native
+       ``int8-all`` and ``int4`` artifacts, each reloaded and held
+       token-identical (16 s clip, 32-token cap) to the model quantized at
+       load from the HF directory, their weights bit-equal, with K1's and
+       K2's launches counted around each run (K2 as ``check_k2_launches``
+       predicts for int4, 0 for int8-all);
+    3. ``int8-kv`` quantized at load from the HF directory: the graph path
+       bit-equal to the uncaptured loop at the 16 s and 30 s windows (the
+       30 s bucket's value product is the one split in chunks).
+    Prints the bytes and the seconds of each write, load and conversion.
+    Fails, with the numbers, when the temporary directory has too little
+    room. -> {"logmel": ..., "int4": ...} launches of the int4 artifact's run."""
+    import gc
+    import shutil
+    import tempfile
+
+    import torch
+
+    from realtime_whisper_asr_tpu_torch.asr import TorchWhisperASR
+    from realtime_whisper_asr_tpu_torch.models.whisper.config import get_config
+    from realtime_whisper_asr_tpu_torch.models.whisper.model import init_params
+    from realtime_whisper_asr_tpu_torch.ops import int4_matmul, logmel
+    from realtime_whisper_asr_tpu_torch.tools.convert_checkpoint import convert
+
+    cfg = get_config(model_size)
+    label = f"checkpoint {model_size}"
+    n_params = None
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        gen = torch.Generator(device=device).manual_seed(0)
+        model = init_params(cfg, gen, torch.bfloat16, device)
+        state = model.state_dict()
+        n_params = sum(t.numel() for t in state.values())
+        # bf16 HF directory + int8-all artifact (~half) + int4 artifact (~half)
+        need = int(2 * n_params * 2.2)
+        free = shutil.disk_usage(tmp).free
+        if free < need:
+            raise AssertionError(f"{label}: {free / 2**30:.2f} GiB free under {tmp}, the phase "
+                                 f"writes ~{need / 2**30:.2f} GiB")
+        hf = os.path.join(tmp, "hf")
+        t0 = time.perf_counter()
+        heads = checkpoint_heads(cfg)
+        hf_bytes = write_hf_dir(hf, cfg, state, heads)
+        write_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        asr = TorchWhisperASR(checkpoint_dir=hf, dtype=torch.bfloat16, device=device)
+        sync_device(device)
+        load_s = time.perf_counter() - t0
+        bad = _states_equal(state, asr.model.state_dict())
+        mask = np.zeros((cfg.n_text_layer, cfg.n_text_head), np.float32)
+        for layer, head in heads:
+            mask[layer, head] = 1.0
+        if bad or not np.array_equal(asr.alignment_heads, mask):
+            raise AssertionError(f"{label}: the HF directory loaded with leaves {bad[:8]} off "
+                                 f"the seeded state, or alignment heads "
+                                 f"{np.argwhere(asr.alignment_heads)} != {heads}")
+        print(f"{label}: {n_params} parameters written as an HF directory in bf16 by the "
+              f"port's writer, {hf_bytes} bytes in {write_s:.2f} s; loaded through "
+              f"TorchWhisperASR(checkpoint_dir=) in {load_s:.2f} s, every leaf bit-equal to the "
+              f"seeded state ({len(state)} leaves), alignment heads {heads} as the file's")
+        # the weight quantizers divide by a tensor: the card's q and s equal the CPU's
+        from realtime_whisper_asr_tpu_torch.models.whisper import quant as Q
+
+        for name in ("decoder.blocks.0.fc1.weight", "encoder.blocks.0.attn.qkv.weight"):
+            for fn in (Q.quantize_int8, Q.quantize_int4):
+                card, cpu = fn(state[name]), fn(state[name].cpu())
+                if not all(torch.equal(a.cpu(), b) for a, b in zip(card, cpu)):
+                    raise AssertionError(f"{label}: {fn.__name__}({name}) on {device} differs "
+                                         f"from the CPU's")
+        print(f"{label}: quantize_int8 and quantize_int4 on {device} bit-equal to the CPU's "
+              f"(2 weights)")
+        del asr, model, state
+        gc.collect()
+        empty_device_cache(device)
+        audio = np.concatenate([golden_audio(i) for i in range(2)])  # 16 s
+        for tier in ("int8-all", "int4"):
+            dst = os.path.join(tmp, tier)
+            t0 = time.perf_counter()
+            _, detected, nbytes = convert(hf, dst, tier, "bfloat16", device)
+            convert_s = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            artifact = TorchWhisperASR(checkpoint_dir=dst, dtype=torch.bfloat16, device=device)
+            sync_device(device)
+            reload_s = time.perf_counter() - t0
+            at_load = TorchWhisperASR(checkpoint_dir=hf, dtype=torch.bfloat16, device=device,
+                                      quantization=tier)
+            bad = _states_equal(at_load.model.state_dict(), artifact.model.state_dict())
+            if detected != tier or artifact.quantization != tier or bad:
+                raise AssertionError(f"{label} {tier}: artifact detected {detected}, runs "
+                                     f"{artifact.quantization}, leaves off the at-load "
+                                     f"quantization {bad[:8]}")
+            tokens, launched = {}, {}
+            for name, asr in (("artifact", artifact), ("at load", at_load)):
+                asr.transcribe_kargs["max_total_tokens"] = 32  # random weights never emit EOT
+                rows = count_k2_rows(asr.model)
+                stats0 = dict(asr.decode_loop.stats)
+                # ---- this model's run, with the launch counts read around it
+                logmel.logmel_launches = 0
+                int4_matmul.int4_launches = 0
+                res = asr.transcribe(audio)
+                launched[name] = {"logmel": logmel.logmel_launches,
+                                  "int4": int4_matmul.int4_launches}
+                # ----
+                graphs = {k: asr.decode_loop.stats[k] - stats0[k] for k in stats0}
+                tokens[name] = res.tokens
+                if launched[name]["logmel"] != 1:
+                    raise AssertionError(f"{label} {tier} {name}: logmel launched "
+                                         f"{launched[name]['logmel']} times for 1 window")
+                predicted, _ = check_k2_launches(f"{label} {tier} {name}", asr, rows, graphs,
+                                                 launched[name]["int4"], tier == "int4")
+            if tokens["artifact"] != tokens["at load"] or not tokens["artifact"]:
+                raise AssertionError(f"{label} {tier}: artifact tokens {tokens['artifact']} != "
+                                     f"quantized at load {tokens['at load']}")
+            print(f"{label} {tier}: converted in {convert_s:.2f} s ({nbytes} bytes, detected "
+                  f"{detected}), reloaded in {reload_s:.2f} s; 16 s clip: {len(tokens['artifact'])} "
+                  f"tokens identical to the model quantized at load, weights bit-equal; K1 "
+                  f"launches {launched['artifact']['logmel']}, K2 launches "
+                  f"{launched['artifact']['int4']} (predicted {predicted})")
+            if tier == "int4":
+                out = launched["artifact"]
+            del artifact, at_load, asr
+            gc.collect()
+            empty_device_cache(device)
+        kv = TorchWhisperASR(checkpoint_dir=hf, dtype=torch.bfloat16, device=device,
+                             quantization="int8-kv")
+        kv.transcribe_kargs["max_total_tokens"] = 32
+        if not kv.model.kv_quant:
+            raise AssertionError(f"{label}: int8-kv model without int8 caches")
+        if device == "cuda":
+            long_audio = np.concatenate([golden_audio(i) for i in range(4)])  # 30 s window
+            check_graph_equals_uncaptured(kv, f"{label} int8-kv", audio, long_audio)
+        del kv
+        gc.collect()
+        empty_device_cache(device)
+    return out
 
 
 #: bench.py's headline loop (bench.py:577-727) runs 3 runs of 24 s; cut to
@@ -1481,15 +1740,16 @@ def check_batch_graph_equals_uncaptured(asr, label: str, clips: list) -> None:
 
 
 def _memory_row_estimate(asr) -> tuple[int, int]:
-    """(``_hbm_safe_batch``'s working set of one row, the model's parameter
-    and buffer bytes)."""
+    """(``_hbm_safe_batch``'s cost of one row for the model's dtype and cache
+    kind, the model's parameter and buffer bytes)."""
     import itertools
 
     from realtime_whisper_asr_tpu_torch.serving import _row_bytes
 
     model = asr.model
-    return _row_bytes(asr.cfg), sum(t.numel() * t.element_size() for t in
-                                    itertools.chain(model.parameters(), model.buffers()))
+    return (_row_bytes(asr.cfg, model.kv_quant, model.dtype.itemsize),
+            sum(t.numel() * t.element_size()
+                for t in itertools.chain(model.parameters(), model.buffers())))
 
 
 def run_capacity(asr, n: int, seconds: int, label: str, guard: FailOnLog) -> dict:
@@ -1558,6 +1818,11 @@ def run_capacity(asr, n: int, seconds: int, label: str, guard: FailOnLog) -> dic
     # ----
     del asr.transcribe_batch_dispatch, asr._encode_many
     peak = torch.cuda.max_memory_allocated()
+    # the allocator's fragmentation at the peak, and what lies outside it
+    # (the CUDA context, library workspaces): _hbm_safe_batch's constants
+    reserved = torch.cuda.max_memory_reserved()
+    free, total = torch.cuda.mem_get_info()
+    outside = total - free - torch.cuda.memory_reserved()
     graphs = {k: loop.stats[k] - stats0[k] for k in loop.stats}
     counters = dict(asr.counters)
     # a group's phases: the pass once more, the timer syncing at each boundary
@@ -1582,7 +1847,30 @@ def run_capacity(asr, n: int, seconds: int, label: str, guard: FailOnLog) -> dic
             "ticks": counters["ticks"], "new_tokens": counters["new_tokens"],
             "sizes": sizes, "dispatch_ms": dispatch_ms, "rows": sum(encoded),
             "launches": launches, "graphs": graphs, "peak": peak, "base": base,
+            "reserved": reserved, "outside": outside, "total": total,
             "cap": server.device_batch_cap, "shapes": len(loop._graphs), "split": split}
+
+
+def check_row_memory(asr, label: str, smi: str, run: dict, growth: float, how: str) -> None:
+    """The measured peak growth a row against ``_row_bytes`` (the repaired
+    formula's cost of a row for the model's tier) and ``_hbm_safe_batch``'s
+    constants against the card: the allocator's fragmentation at the peak
+    (reserved less allocated) within ``HOLD_BACK`` of the card, the memory
+    outside the allocator (the CUDA context, library workspaces) within
+    ``FIXED_BYTES``. Prints ``device_batch_cap``; fails on a breach."""
+    from realtime_whisper_asr_tpu_torch.serving import FIXED_BYTES, HOLD_BACK
+
+    row_est, param_bytes = _memory_row_estimate(asr)
+    frag = run["reserved"] - run["peak"]
+    print(f"{label} on {smi}: peak memory growth a row ({how}) {growth / 2**20:.1f} MiB against "
+          f"_row_bytes {row_est / 2**20:.1f} MiB (2 groups in flight: "
+          f"{2 * row_est / 2**20:.1f} MiB); parameters and buffers {param_bytes / 2**30:.2f} GiB; "
+          f"fragmentation at the peak {frag / 2**20:.1f} MiB ({frag / run['total']:.2%} of the "
+          f"card, HOLD_BACK {HOLD_BACK:.0%}); outside the allocator {run['outside'] / 2**20:.1f} "
+          f"MiB (FIXED_BYTES {FIXED_BYTES / 2**30:.0f} GiB); device_batch_cap {run['cap']} on "
+          f"{run['total'] / 2**30:.1f} GiB")
+    if growth > row_est or frag > HOLD_BACK * run["total"] or run["outside"] > FIXED_BYTES:
+        raise AssertionError(f"{label}: the serving cap's formula is breached on the card")
 
 
 def profile_decode_split(asr, label: str, b: int, replays: int = 5) -> dict:
@@ -1596,7 +1884,9 @@ def profile_decode_split(asr, label: str, b: int, replays: int = 5) -> dict:
 
     from realtime_whisper_asr_tpu_torch.models.whisper import decode as D
 
-    opts = asr._make_opts()
+    # a 16-token bound keeps the serving loop's shape where it matters for a
+    # step (window, prompt, a 128-position cache) and takes 16 steps, not 96
+    opts = dataclasses.replace(asr._make_opts(), max_new_tokens=16, max_total_tokens=16)
     with torch.inference_mode():
         xa = asr._logmel_encode(torch.from_numpy(asr._pad_window(synthetic_speech(8.0))).cuda())
     loop = asr.decode_loop
@@ -1707,14 +1997,10 @@ def phase_serving(guard: FailOnLog, smi: str) -> dict:
         print(f"{label} on {smi}: N={n}: PhaseTimer split of a group, the pass once more (mean "
               f"ms over {run['split']['decode']['count']} groups): "
               + ", ".join(f"{k} {v['mean_ms']}" for k, v in run["split"].items()))
-    row_est, param_bytes = _memory_row_estimate(asr)
     big, one = runs[SERVING_STREAMS[0]], runs[SERVING_STREAMS[1]]
     growth = ((big["peak"] - big["base"]) - (one["peak"] - one["base"])) / (big["n"] - one["n"])
-    print(f"{label} on {smi}: peak memory per row (N={big['n']} against N={one['n']}) "
-          f"{growth / 2**20:.1f} MiB against _hbm_safe_batch's {row_est / 2**20:.1f} MiB a row of "
-          f"a group (2 groups in flight: {2 * row_est / 2**20:.1f} MiB); parameters and buffers "
-          f"{param_bytes / 2**30:.2f} GiB; device_batch_cap {big['cap']} on "
-          f"{torch.cuda.get_device_properties(0).total_memory / 2**30:.1f} GiB")
+    check_row_memory(asr, label, smi, big, growth,
+                     f"N={big['n']} against N={one['n']}")
     split = {b: profile_decode_split(asr, label, b) for b in (8, 1)}
     lap("decode split")
     if split[8] and split[1]:
@@ -1726,6 +2012,38 @@ def phase_serving(guard: FailOnLog, smi: str) -> dict:
     gc.collect()
     torch.cuda.empty_cache()
 
+    # 3b. int8-kv at N = 8 with the same feed
+    label = "serving large-v3 int8-kv"
+    asr = TorchWhisperASR(model_size="large-v3", dtype=torch.bfloat16, device="cuda", seed=0,
+                          quantization="int8-kv")
+    asr.transcribe_kargs.update(max_new_tokens=96, max_total_tokens=96)
+    lap("init int8-kv")
+    n = SERVING_STREAMS[0]
+    run = runs["int8-kv"] = run_capacity(asr, n, SERVING_SECONDS, label, guard)
+    lap(f"capacity int8-kv N={n}")
+    print(f"{label} on {smi}: N={n}: aggregate RTF {run['rtf']:.4f} (wall {run['wall']:.2f} s; "
+          f"warm-up pass {run['warm_s']:.1f} s); {run['ticks']} ticks, {run['new_tokens']} new "
+          f"tokens; group_failures 0; batch sizes {sorted(set(run['sizes']))}; group dispatch "
+          f"p50 {np.median(run['dispatch_ms']):.1f} ms; {run['graphs']['captures']} captures "
+          f"after the warm-up; rows encoded {run['rows']} = K1 launches {run['launches']}; peak "
+          f"{(run['peak'] - run['base']) / 2**20:.1f} MiB above the model's "
+          f"{run['base'] / 2**30:.2f} GiB; PhaseTimer split of a group: "
+          + ", ".join(f"{k} {v['mean_ms']}" for k, v in run["split"].items()))
+    # one N: the growth a row bounded by everything above the model over N
+    check_row_memory(asr, label, smi, run, (run["peak"] - run["base"]) / n,
+                     f"N={n}: all the peak above the model over {n} rows, an upper bound")
+    split_kv = {b: profile_decode_split(asr, label, b) for b in (8, 1)}
+    lap("decode split int8-kv")
+    for b in (8, 1):
+        if split[b] and split_kv[b]:
+            print(f"{label} on {smi}: decode step at B={b}: int8-kv {split_kv[b]['per_step']:.3f} "
+                  f"ms (dtype copies {split_kv[b]['copies'] / split_kv[b]['per_step']:.0%}) "
+                  f"beside int8-all {split[b]['per_step']:.3f} ms (dtype copies "
+                  f"{split[b]['copies'] / split[b]['per_step']:.0%}) in kernel time")
+    del asr
+    gc.collect()
+    torch.cuda.empty_cache()
+
     # 4. the int4 tier once at N = 8
     label = "serving large-v3 int4"
     asr = TorchWhisperASR(model_size="large-v3", dtype=torch.bfloat16, device="cuda", seed=0,
@@ -1733,16 +2051,7 @@ def phase_serving(guard: FailOnLog, smi: str) -> dict:
     asr.transcribe_kargs.update(max_new_tokens=96, max_total_tokens=96)
     lap("init int4")
     loop = asr.decode_loop
-    rows = {"windows": [], "spans": []}
-    for name, key in (("precompute_cross_kv", "windows"), ("decode_span", "spans")):
-        inner = getattr(asr.model, name)
-
-        def counted(first, *args, _inner=inner, _key=key, **kwargs):
-            rows[_key].append(first.shape[0] * first.shape[1] if _key == "windows"
-                              else first.numel())
-            return _inner(first, *args, **kwargs)
-
-        setattr(asr.model, name, counted)
+    rows = count_k2_rows(asr.model)
     steps: list[int] = []  # the rows of each loop step: warm-ups and replays
     loop_of, run_of = loop.loop, loop.run
 
@@ -2134,6 +2443,40 @@ def _forced_logits(asr, audio: np.ndarray, tokens: list[int]) -> np.ndarray:
     return logits[0, p - 1 : p - 1 + len(tokens)].float().cpu().numpy()
 
 
+def check_golden_prequant(asr8, row8: dict, matrix: dict) -> None:
+    """The golden ``prequant`` row on the card: ``asr8``'s ``int8-all``
+    model (the golden weights at f32) saved in the port's native format,
+    reloaded through ``TorchWhisperASR(checkpoint_dir=)`` as a pre-quantized
+    artifact, 24-token cap: its tokens and text equal the card's
+    ``int8-all`` run (``row8``) and, when that run equals the recorded
+    ``int8all`` row, the recorded ``prequant`` row with ``matches_int8all``."""
+    import tempfile
+
+    import torch
+
+    from realtime_whisper_asr_tpu_torch.asr import TorchWhisperASR
+    from realtime_whisper_asr_tpu_torch.models.whisper.checkpoint import save_checkpoint
+
+    with tempfile.TemporaryDirectory() as d:
+        save_checkpoint(d, asr8.model.state_dict(), asr8.cfg)
+        asr = TorchWhisperASR(checkpoint_dir=d, dtype=torch.float32, device="cuda")
+    asr.transcribe_kargs["max_total_tokens"] = 24  # random weights never emit EOT
+    res = asr.transcribe(golden_audio(0))
+    row = {"tokens": [int(t) for t in res.tokens],
+           "text": "".join(seg.text for seg in res).strip()}
+    row["matches_int8all"] = row["tokens"] == matrix["int8all"]["tokens"]
+    if asr.quantization != "int8-all" or row["tokens"] != row8["tokens"]:
+        raise AssertionError(f"golden prequant on the card: {asr.quantization} artifact "
+                             f"tokens {row['tokens']} != the card's int8-all {row8['tokens']}")
+    if row8 == matrix["int8all"] and row != matrix["prequant"]:
+        raise AssertionError(f"golden prequant on the card: {row} != recorded "
+                             f"{matrix['prequant']}")
+    print(f"golden prequant at f32 on the card (the int8-all model saved in the port's format, "
+          f"reloaded as a pre-quantized artifact): tokens equal the card's int8-all run; "
+          + ("tokens and text equal the recorded row, matches_int8all true"
+             if row == matrix["prequant"] else "the recorded row differs as int8all does"))
+
+
 def phase_golden_quant() -> list[str]:
     """The golden matrix rows of the quantized tiers at f32 on the card.
 
@@ -2171,6 +2514,8 @@ def phase_golden_quant() -> list[str]:
         row = {"tokens": [int(t) for t in res.tokens],
                "text": "".join(seg.text for seg in res).strip()}
         note = f" (K2 launched {launched} times)" if tier == "int4" else ""
+        if tier == "int8-all":
+            check_golden_prequant(asr, row, matrix)
         if row == matrix[key]:
             print(f"golden {key} at f32: tokens and text equal the recorded row{note}")
             continue
@@ -2236,6 +2581,9 @@ def main() -> int:
         launches[tier] = run(f"full_width {tier or 'bf16'}", phase_full_width, guard, tier)
         gc.collect()
         torch.cuda.empty_cache()
+    run("checkpoint", phase_checkpoint, guard)
+    gc.collect()
+    torch.cuda.empty_cache()
     run("headline", phase_headline, guard, smi)
     gc.collect()
     torch.cuda.empty_cache()

@@ -32,7 +32,9 @@ row, one encode of B rows and one batched decode (``decode.greedy_decode_batch``
 from __future__ import annotations
 
 import dataclasses
+import json
 import logging
+import os
 from typing import Optional, Sequence
 
 import numpy as np
@@ -43,7 +45,12 @@ from realtime_whisper_asr_tpu_torch.device import resolve_device
 from realtime_whisper_asr_tpu_torch.models.whisper import decode as D
 from realtime_whisper_asr_tpu_torch.models.whisper import quant as Q
 from realtime_whisper_asr_tpu_torch.models.whisper import timestamps as TS
+from realtime_whisper_asr_tpu_torch.models.whisper.checkpoint import (
+    is_native_checkpoint,
+    load_checkpoint,
+)
 from realtime_whisper_asr_tpu_torch.models.whisper.config import WhisperConfig, get_config
+from realtime_whisper_asr_tpu_torch.models.whisper.load import load_checkpoint_dir
 from realtime_whisper_asr_tpu_torch.models.whisper.model import Whisper, encoder_flops, init_params
 from realtime_whisper_asr_tpu_torch.models.whisper.tokenizer import Tokenizer, get_tokenizer
 from realtime_whisper_asr_tpu_torch.ops.logmel import log_mel_spectrogram
@@ -112,6 +119,17 @@ class TranscriptionResult(list):
         self.tokens = tokens or []
 
 
+def load_model_dir(path: str, dtype) -> tuple[WhisperConfig, dict]:
+    """(config, state dict on the CPU, floats in ``dtype``) of a checkpoint
+    directory: the port's native format when it has ``rtwa_config.json``
+    (an orbax-only one raises ``ValueError``), else the HF layout."""
+    if not os.path.isdir(path):
+        raise FileNotFoundError(f"no checkpoint directory {path}")
+    if is_native_checkpoint(path):
+        return load_checkpoint(path, dtype)
+    return load_checkpoint_dir(path, dtype)
+
+
 class TorchWhisperASR:
     """Whisper backend on the card. ``sep=""`` — words carry their leading space."""
 
@@ -134,20 +152,43 @@ class TorchWhisperASR:
         word_timestamps: bool = True,
         device="cuda",
         quantization: Optional[str] = None,
+        checkpoint_dir: Optional[str] = None,
     ):
         """``params``: a state dict of ``models.whisper.model.Whisper``
-        (``convert.params_from_jax`` / ``convert.load_flat_npz``); random
-        init from ``seed`` when None. Runs on the card unless ``device``
-        says otherwise, and raises when CUDA is absent.
+        (``convert.params_from_jax`` / ``convert.load_flat_npz``);
+        ``checkpoint_dir``: a directory to load instead, the port's native
+        checkpoint (``checkpoint.py``) or an HF-layout one (``load.py``),
+        its floats cast to ``dtype`` before any quantization, and its
+        ``generation_config.json`` alignment heads and tokenizer files used;
+        random init from ``seed`` when neither is given. Runs on the card
+        unless ``device`` says otherwise, and raises when CUDA is absent.
 
         ``quantization``, as the JAX backend's: None, ``"int8"`` (decoder
         block linears), ``"int8-all"`` (+ encoder blocks + tied head),
-        ``"int4"`` (int4-g128 decoder blocks + int8 head) or ``"int4-all"``
-        (+ int8 encoder blocks). The tier quantizes the weights before the
-        model is built. ``"int8-kv"`` raises ``NotImplementedError`` (not
-        ported yet), an unknown value ``ValueError``."""
-        Q.tier_layout(quantization)  # raises on a tier not ported or unknown
-        self.quantization = quantization if quantization not in ("", "none") else None
+        ``"int8-kv"`` (``int8-all``'s weights + int8 KV caches), ``"int4"``
+        (int4-g128 decoder blocks + int8 head) or ``"int4-all"`` (+ int8
+        encoder blocks); an unknown value raises ``ValueError``. The tier
+        quantizes the weights before the model is built. A pre-quantized
+        checkpoint (``tools/convert_checkpoint.py``) is never weakened: a
+        requested tier that ranks below the artifact's (``quant.RANK``)
+        runs, and reports, the artifact's tier; with no tier requested the
+        artifact's runs."""
+        Q.tier_layout(quantization)  # raises on an unknown tier
+        quantization = quantization if quantization not in ("", "none") else None
+        if checkpoint_dir is not None:
+            cfg, params = load_model_dir(checkpoint_dir, dtype)
+            pre_quant = Q.detect_quantization(params)
+            if pre_quant is not None:
+                logger.info("checkpoint carries pre-quantized weights (%s)", pre_quant)
+                if Q.RANK[pre_quant] > Q.RANK.get(quantization, 0):
+                    if quantization is not None:
+                        logger.warning("checkpoint is pre-quantized %s; requested %r cannot "
+                                       "weaken it: running (and reporting) %s",
+                                       pre_quant, quantization, pre_quant)
+                    quantization = pre_quant
+        self.quantization = quantization
+        #: ``int8-kv``: the decode's K/V caches as int8 rows + f32 row scales
+        self._kv_quant = quantization == "int8-kv"
         self.device = resolve_device(device)
         self.cfg = cfg or get_config(model_size)
         if params is None:
@@ -158,13 +199,21 @@ class TorchWhisperASR:
             if self.quantization:
                 params = self.model.state_dict()
         if params is not None:
+            if checkpoint_dir is not None:  # quantized on the device, tensor by tensor
+                params = {k: v.to(self.device) for k, v in params.items()}
+            # the card's and the CPU's quantizers agree bit for bit
             state = Q.quantize(params, self.quantization)
-            self.model = Whisper.empty(self.cfg, dtype, self.device, self.quantization)
+            # the layout the state has (an int8-all artifact run as int4
+            # keeps its int8 encoder, as the JAX package's transforms do)
+            layout = "int8-kv" if self._kv_quant else Q.detect_quantization(state)
+            self.model = Whisper.empty(self.cfg, dtype, self.device, layout)
             self.model.load_state_dict(state)
-        self.tokenizer = tokenizer or get_tokenizer(self.cfg)
-        #: (L, H) f32 weights for DTW cross-attention capture; None selects
-        #: the top-half-layers default (decode._amask_dev)
-        self.alignment_heads: Optional[np.ndarray] = None
+        self.tokenizer = tokenizer or get_tokenizer(self.cfg, checkpoint_dir)
+        #: (L, H) f32 weights for DTW cross-attention capture, from the
+        #: checkpoint's generation_config.json ``alignment_heads`` (HF
+        #: convention); None selects the top-half-layers default
+        #: (decode._amask_dev)
+        self.alignment_heads = self._load_alignment_heads(checkpoint_dir)
         self.original_language = language if self.cfg.is_multilingual else None
         self.task = "transcribe"
         self.word_timestamps = word_timestamps
@@ -201,6 +250,25 @@ class TorchWhisperASR:
         self._extra_suppress = tuple(non_speech()) if non_speech else ()
 
     # ------------------------------------------------------------------ utils
+
+    def _load_alignment_heads(self, checkpoint_dir) -> Optional[np.ndarray]:
+        """The (L, H) 0/1 mask of ``generation_config.json``'s
+        ``alignment_heads`` ([layer, head] pairs), or None when the file,
+        the key or a valid pair list is missing."""
+        if not checkpoint_dir:
+            return None
+        path = os.path.join(checkpoint_dir, "generation_config.json")
+        try:
+            with open(path) as f:
+                heads = json.load(f).get("alignment_heads")
+            if not heads:
+                return None
+            mask = np.zeros((self.cfg.n_text_layer, self.cfg.n_text_head), np.float32)
+            for layer, head in heads:
+                mask[layer, head] = 1.0
+            return mask
+        except (OSError, ValueError, KeyError, IndexError, TypeError, AttributeError):
+            return None
 
     def _window_bucket(self, n_samples: int) -> int:
         for b in self.WINDOW_BUCKETS_S:

@@ -31,3 +31,15 @@ def no_tf32_cudnn():
         yield
     finally:
         torch.backends.cudnn.allow_tf32 = prev
+
+
+@contextlib.contextmanager
+def no_tf32_matmul():
+    """cuBLAS f32 matmuls in IEEE f32 inside this block, whatever the
+    process-wide ``torch.backends.cuda.matmul.allow_tf32`` says."""
+    prev = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        yield
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = prev

@@ -1,0 +1,81 @@
+"""The port's native checkpoint format: the deployment artifact.
+
+Port of ``realtime_whisper_asr_tpu/models/whisper/checkpoint.py``. The JAX
+package keeps its params with orbax, a JAX library the port may not import,
+so the port has a format of its own:
+
+- ``rtwa_config.json``: the architecture, the fields of
+  ``dataclasses.asdict(WhisperConfig)`` (the JAX package's file of the same
+  name);
+- ``rtwa_torch.safetensors``: the state dict of ``model.Whisper``, dense or
+  pre-quantized by a tier (``quant.quantize``), written by the port's own
+  safetensors writer (``safetensors_io``).
+
+A directory with ``rtwa_config.json`` and orbax's ``params/`` but no
+``rtwa_torch.safetensors`` is the JAX package's native checkpoint: loading
+it raises and names the conversion. The sharded and train-state functions
+of the JAX module wait for the port's ``parallel`` and ``train`` packages.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import json
+import os
+
+from realtime_whisper_asr_tpu_torch.models.whisper.config import WhisperConfig
+from realtime_whisper_asr_tpu_torch.models.whisper.safetensors_io import (
+    read_safetensors,
+    write_safetensors,
+)
+
+_CONFIG_FILE = "rtwa_config.json"
+_STATE_FILE = "rtwa_torch.safetensors"
+_ORBAX_DIR = "params"
+
+
+def save_checkpoint(path: str, state: dict, cfg: WhisperConfig) -> int:
+    """Write ``state`` (a state dict of ``model.Whisper``, on any device) and
+    ``cfg`` as a native checkpoint under ``path``, tensor by tensor. Returns
+    the bytes of the state file."""
+    os.makedirs(path, exist_ok=True)
+    with open(os.path.join(path, _CONFIG_FILE), "w") as f:
+        json.dump(dataclasses.asdict(cfg), f, indent=2)
+    return write_safetensors(os.path.join(path, _STATE_FILE), state)
+
+
+def _cast_floats(state: dict, dtype) -> dict:
+    """Cast float tensors to ``dtype``, EXCEPT the f32 scales of quantized
+    weights (``name.s`` beside ``name.q``): a bf16 scale would dequantize to
+    other weights than the quantization the checkpoint was saved from."""
+    out = {}
+    for key, t in state.items():
+        scale = key.endswith(".s") and key[:-1] + "q" in state
+        out[key] = t.to(dtype) if t.is_floating_point() and not scale else t
+    return out
+
+
+def is_native_checkpoint(path: str) -> bool:
+    """A native checkpoint of either package: ``rtwa_config.json`` present."""
+    return os.path.exists(os.path.join(path, _CONFIG_FILE))
+
+
+def load_checkpoint(path: str, dtype=None) -> tuple[WhisperConfig, dict]:
+    """(config, state dict as CPU tensors) of a native checkpoint; the
+    floats cast to ``dtype`` when given, the scales of quantized weights kept
+    f32. Raises ``ValueError`` for the JAX package's orbax checkpoint."""
+    with open(os.path.join(path, _CONFIG_FILE)) as f:
+        cfg = WhisperConfig(**json.load(f))
+    state_file = os.path.join(path, _STATE_FILE)
+    if not os.path.exists(state_file):
+        if os.path.isdir(os.path.join(path, _ORBAX_DIR)):
+            raise ValueError(
+                f"{path} is the JAX package's orbax checkpoint ({_ORBAX_DIR}/), which the port "
+                f"cannot read. Convert it where the JAX package is installed: "
+                f"realtime_whisper_asr_tpu.models.whisper.checkpoint.load_checkpoint, then "
+                f"realtime_whisper_asr_tpu_torch.models.whisper.convert.params_from_jax, then "
+                f"this module's save_checkpoint")
+        raise FileNotFoundError(f"{path} has {_CONFIG_FILE} but no {_STATE_FILE}")
+    state = read_safetensors(state_file)
+    return cfg, (state if dtype is None else _cast_floats(state, dtype))
+

@@ -24,7 +24,10 @@ import torch
 
 
 def _t(a: np.ndarray) -> torch.Tensor:
-    return torch.from_numpy(np.array(a, order="C"))  # a writable contiguous copy
+    a = np.array(a, order="C")  # a writable contiguous copy
+    if a.dtype.name == "bfloat16":  # ml_dtypes' bf16, which torch cannot take
+        return torch.from_numpy(a.view(np.int16)).view(torch.bfloat16)
+    return torch.from_numpy(a)
 
 
 def _index(w, i: int):

@@ -339,7 +339,8 @@ class LoopState:
 
 @dataclasses.dataclass(frozen=True)
 class LoopKey:
-    """What a captured loop bakes in: the model (and so its tier and dtype),
+    """What a captured loop bakes in: the model (and so its tier, dtype and
+    cache kind: ``int8-kv``'s int8 rows and scales are another state),
     the window bucket (audio_ctx), the prompt length p, the loop bound
     max_new, the self cache length, the draft slots, batch rows, and what
     the step reads from outside its state (the selection options, the
@@ -409,11 +410,11 @@ def _step(model: Whisper, opts: DecodeOptions, st: LoopState, sup_mask: torch.Te
     go = ~st.finished.all() & (st.pos < st.max_total)
     at = st.pos.clamp(1, t - 1)  # equals pos wherever go
     prev = (at - 1).view(1)
-    cache = st.cache
-    old = [buf.index_select(3, prev) for buf in (cache.self_k, cache.self_v)]
-    logits, xw = model.decode_step(st.tokens.index_select(1, prev)[:, 0], at - 1, cache,
+    bufs = st.cache.self_buffers()  # self K/V, and their scales under int8-kv
+    old = [buf.index_select(3, prev) for buf in bufs]
+    logits, xw = model.decode_step(st.tokens.index_select(1, prev)[:, 0], at - 1, st.cache,
                                    alignment_mask=amask)
-    for buf, kept in zip((cache.self_k, cache.self_v), old):  # undo the write where not go
+    for buf, kept in zip(bufs, old):  # undo the write where not go
         buf.index_copy_(3, prev, torch.where(go, buf.index_select(3, prev), kept))
     nxt, lp = _select_next(cfg, opts, logits, st.tokens, at.expand(st.tokens.shape[0]),
                            st.last_ts, st.n_prefix, p, sup_mask)

@@ -17,7 +17,11 @@ numerics, in PyTorch idiom:
 - the int8 / int4 tiers (``quant.py``) swap block linears for
   ``Int8Linear`` / ``Int4Linear`` and the tied embedding for
   ``Int8Embedding``, computing the JAX package's quantized ``_linear``,
-  ``_emb_rows`` and ``_logits_head``.
+  ``_emb_rows`` and ``_logits_head``;
+- the ``int8-kv`` tier (``Whisper.kv_quant``) keeps both decoder caches as
+  int8 rows with f32 per-row scales and attends to them with exact int32
+  products (``_attend_q8``); its decoder activations are bf16 whatever the
+  weights' dtype, as the JAX package's.
 
 The public functions keep the JAX package's layouts: mel (B, T, n_mels),
 encoder output (B, T/2, d), caches (L, B, H, T, Dh), logits f32.
@@ -38,7 +42,7 @@ from realtime_whisper_asr_tpu_torch.device import no_tf32_cudnn, resolve_device
 from realtime_whisper_asr_tpu_torch.models.whisper.config import WhisperConfig
 from realtime_whisper_asr_tpu_torch.models.whisper.quant import int4_groups, tier_layout
 from realtime_whisper_asr_tpu_torch.ops.int4_matmul import int4_linear
-from realtime_whisper_asr_tpu_torch.ops.int8_matmul import int8_matmul, quantize_rows
+from realtime_whisper_asr_tpu_torch.ops.int8_matmul import int8_bmm, int8_matmul, quantize_rows
 
 _NEG = -1e9  # additive mask value (as the JAX package)
 _INV_SQRT2_16 = 0.70703125  # 2**-0.5 rounded to bf16 (and to f16 alike)
@@ -87,7 +91,10 @@ class Conv1d(nn.Conv1d):
 class _QuantLinear(nn.Module):
     """Weight-only quantized linear's buffers: ``q`` (int8), ``s`` (f32
     scales) and a bias in the compute dtype. The activations are quantized
-    per row on each call, as the JAX package's ``_linear``."""
+    per row on each call, as the JAX package's ``_linear``; ``compiled``
+    selects ``quantize_rows``'s compiled scale (the ``int8-kv`` tier)."""
+
+    compiled = False
 
     def __init__(self, d_in: int, d_out: int, q_shape, s_shape, bias: bool = True,
                  dtype=None, device=None):
@@ -110,7 +117,7 @@ class Int8Linear(_QuantLinear):
         super().__init__(d_in, d_out, (d_out, d_in), (d_out,), bias, dtype, device)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        xq, sx = quantize_rows(x)
+        xq, sx = quantize_rows(x, self.compiled)
         y = int8_matmul(xq.reshape(-1, self.in_features), self.q).float()
         y = (y * sx.reshape(-1, 1) * self.s).to(x.dtype).reshape(*x.shape[:-1], self.out_features)
         return y if self.bias is None else y + self.bias.to(x.dtype)
@@ -136,7 +143,10 @@ class Int8Embedding(nn.Module):
     """Tied token embedding as int8 rows q with per-row scales s (V,), for
     the embedding gather and the logits head. ``q`` holds V rows padded with
     zeros to a multiple of 8 (the card's int8 product takes N % 8 == 0);
-    the state dict may carry the V rows alone, which load pads."""
+    the state dict may carry the V rows alone, which load pads.
+    ``compiled`` as ``_QuantLinear``'s."""
+
+    compiled = False
 
     def __init__(self, n_vocab: int, d: int, device=None):
         super().__init__()
@@ -157,7 +167,7 @@ class Int8Embedding(nn.Module):
 
     def logits(self, x: torch.Tensor) -> torch.Tensor:
         """x @ dequant(q).T, f32: ``y * sx * s`` over an exact int32 product."""
-        xq, sx = quantize_rows(x)
+        xq, sx = quantize_rows(x, self.compiled)
         lead = x.shape[:-1]
         y = int8_matmul(xq.reshape(-1, xq.shape[-1]), self.q)[:, : self.n_vocab]
         return y.reshape(*lead, self.n_vocab).float() * sx * self.s
@@ -193,6 +203,34 @@ def _attend(q, k, v, mask: Optional[torch.Tensor] = None, return_weights: bool =
         scores = scores + mask
     w = torch.softmax(scores, dim=-1)
     out = torch.matmul(w.to(v.dtype), v)
+    return out, (w if return_weights else None)
+
+
+def _quantize_kv_rows(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """The JAX package's ``_quantize_kv_rows`` as its jitted decode computes
+    it: (…, T, Dh) -> (int8 rows, f32 per-row scales (…, T, 1)),
+    ``quantize_rows(x, compiled=True)``."""
+    return quantize_rows(x, compiled=True)
+
+
+def _attend_q8(q, k8, v8, ks, vs, mask: Optional[torch.Tensor] = None,
+               return_weights: bool = False, out_dtype=torch.bfloat16):
+    """Attention against int8 K/V rows, the JAX package's ``_attend_q8``:
+    q (B,H,Tq,Dh) quantized per row, an exact int32 q8·k8ᵀ (``int8_bmm``),
+    ``scores * sq * ksᵀ * scale`` in that order, f32 softmax, the per-row
+    value scales folded into the weights (``w * vsᵀ``), those quantized per
+    row, an exact int32 w8·v8, ``* sw``, cast to ``out_dtype``; every scale
+    as the jitted reference computes it (``quantize_rows(compiled=True)``).
+    K/V of batch 1 against B > 1 queries (the JAX package's shared-KV
+    branch) broadcast in the products. Returns (out, f32 weights or None)."""
+    scale = q.shape[-1] ** -0.5
+    q8, sq = _quantize_kv_rows(q)
+    scores = int8_bmm(q8, k8.transpose(-1, -2)).float() * sq * ks.transpose(-1, -2) * scale
+    if mask is not None:
+        scores = scores + mask
+    w = torch.softmax(scores, dim=-1)
+    w8, sw = _quantize_kv_rows(w * vs.transpose(-1, -2))
+    out = (int8_bmm(w8, v8).float() * sw).to(out_dtype)
     return out, (w if return_weights else None)
 
 
@@ -289,12 +327,34 @@ class TextDecoder(nn.Module):
 class DecoderCache:
     """self_k/self_v: (L, B, H, text_ctx, Dh), written in place at the decode
     position; cross_k/cross_v: (L, B, H, audio_ctx, Dh), computed once per
-    encoded window."""
+    encoded window. Under ``int8-kv`` all four are int8 rows and the scale
+    fields their f32 per-row scales, (L, B, H, T, 1); otherwise the scale
+    fields are None."""
 
     self_k: torch.Tensor
     self_v: torch.Tensor
     cross_k: torch.Tensor
     cross_v: torch.Tensor
+    self_ks: Optional[torch.Tensor] = None
+    self_vs: Optional[torch.Tensor] = None
+    cross_ks: Optional[torch.Tensor] = None
+    cross_vs: Optional[torch.Tensor] = None
+
+    @property
+    def kv_quant(self) -> bool:
+        return self.self_ks is not None
+
+    @property
+    def act_dtype(self) -> torch.dtype:
+        """The decoder's activation dtype: bf16 under ``int8-kv`` (the JAX
+        package's ``jnp.bfloat16 if kvq``), else the cache's."""
+        return torch.bfloat16 if self.kv_quant else self.self_k.dtype
+
+    def self_buffers(self) -> tuple:
+        """The buffers a decode position writes: self K/V (and their scales)."""
+        if self.kv_quant:
+            return self.self_k, self.self_v, self.self_ks, self.self_vs
+        return self.self_k, self.self_v
 
 
 class Whisper(nn.Module):
@@ -306,6 +366,9 @@ class Whisper(nn.Module):
         super().__init__()
         self.cfg = cfg
         self.quantization = quantization
+        #: ``int8-kv``: int8 decoder caches (``DecoderCache``), bf16 decoder
+        #: activations
+        self.kv_quant = quantization == "int8-kv"
         enc_kind, dec_kind, head_int8 = tier_layout(quantization)
         factory = {"dtype": dtype, "device": device}
         self.encoder = AudioEncoder(cfg, **factory)
@@ -317,6 +380,10 @@ class Whisper(nn.Module):
         if head_int8:
             del self.decoder.tok_emb
             self.decoder.tok_emb = Int8Embedding(cfg.n_vocab, cfg.n_text_state, device=device)
+        if self.kv_quant:  # the tier's every quantizer as the jitted reference's
+            for mod in self.modules():
+                if isinstance(mod, (_QuantLinear, Int8Embedding)):
+                    mod.compiled = True
 
     @classmethod
     def empty(cls, cfg: WhisperConfig, dtype, device,
@@ -359,29 +426,58 @@ class Whisper(nn.Module):
             cv[layer] = _split_heads(blk.cross.value(xa), cfg.n_text_head)
         return ck, cv
 
-    def empty_cache(self, batch: int, audio_ctx: int, text_ctx: int, dtype,
-                    device) -> DecoderCache:
-        """Cache buffers, uninitialised (``fill_cache`` fills them)."""
+    def _precompute_cross_kv_q8(self, xa: torch.Tensor, out) -> None:
+        """``int8-kv``'s cross K/V into ``out`` = (k8, ks, v8, vs): each
+        layer's K/V quantized per row as soon as it is computed, so at most
+        one layer's K/V in xa's dtype is ever live (the JAX package's
+        per-layer ``_precompute_cross_kv_q8``)."""
+        n_head = self.cfg.n_text_head
+        k8, ks, v8, vs = out
+        for layer, blk in enumerate(self.decoder.blocks):
+            for q_buf, s_buf, lin in ((k8, ks, blk.cross.key), (v8, vs, blk.cross.value)):
+                q_buf[layer], s_buf[layer] = _quantize_kv_rows(_split_heads(lin(xa), n_head))
+
+    def empty_cache(self, batch: int, audio_ctx: int, text_ctx: int, dtype, device,
+                    kv_quant: Optional[bool] = None) -> DecoderCache:
+        """Cache buffers, uninitialised (``fill_cache`` fills them): in
+        ``dtype``, or int8 rows and f32 per-row scales under ``kv_quant``
+        (the model's ``int8-kv`` tier when None)."""
         cfg = self.cfg
+        kv_quant = self.kv_quant if kv_quant is None else kv_quant
         dh = cfg.n_text_state // cfg.n_text_head
         self_shape = (cfg.n_text_layer, batch, cfg.n_text_head, text_ctx, dh)
         cross_shape = (cfg.n_text_layer, batch, cfg.n_text_head, audio_ctx, dh)
-        return DecoderCache(*(torch.empty(shape, dtype=dtype, device=device)
-                              for shape in (self_shape, self_shape, cross_shape, cross_shape)))
+        shapes = (self_shape, self_shape, cross_shape, cross_shape)
+        if not kv_quant:
+            return DecoderCache(*(torch.empty(shape, dtype=dtype, device=device)
+                                  for shape in shapes))
+        return DecoderCache(
+            *(torch.empty(shape, dtype=torch.int8, device=device) for shape in shapes),
+            *(torch.empty(shape[:-1] + (1,), dtype=torch.float32, device=device)
+              for shape in shapes))
 
     def fill_cache(self, xa: torch.Tensor, cache: DecoderCache) -> None:
         """One window's cache, in place: its cross K/V written into the
         buffers, the self K/V zeroed (buffers whose addresses a captured
-        decode loop keeps)."""
-        self.precompute_cross_kv(xa, out=(cache.cross_k, cache.cross_v))
+        decode loop keeps); under ``int8-kv`` the self scales reset to
+        1e-12, as the JAX package's ``init_cache``."""
+        if cache.kv_quant:
+            self._precompute_cross_kv_q8(
+                xa, out=(cache.cross_k, cache.cross_ks, cache.cross_v, cache.cross_vs))
+            cache.self_ks.fill_(1e-12)
+            cache.self_vs.fill_(1e-12)
+        else:
+            self.precompute_cross_kv(xa, out=(cache.cross_k, cache.cross_v))
         cache.self_k.zero_()
         cache.self_v.zero_()
 
-    def init_cache(self, xa: torch.Tensor, text_ctx: Optional[int] = None) -> DecoderCache:
+    def init_cache(self, xa: torch.Tensor, text_ctx: Optional[int] = None,
+                   kv_quant: Optional[bool] = None) -> DecoderCache:
         """A new cache for xa. ``text_ctx`` trims the self-attention cache
-        below n_text_ctx when the caller knows its decode budget."""
+        below n_text_ctx when the caller knows its decode budget;
+        ``kv_quant`` as ``empty_cache``."""
         cache = self.empty_cache(xa.shape[0], xa.shape[1], text_ctx or self.cfg.n_text_ctx,
-                                 xa.dtype, xa.device)
+                                 xa.dtype, xa.device, kv_quant)
         self.fill_cache(xa, cache)
         return cache
 
@@ -398,18 +494,34 @@ class Whisper(nn.Module):
                         alignment_mask: Optional[torch.Tensor]):
         """Run the decoder blocks over x (B, S, d) at the positions ``pos``
         (S,) long, on the cache's device, writing their K/V into the self
-        cache in place. Returns (hidden, xattn (B, S, audio_ctx) or None)."""
+        cache in place (int8 rows and their scales under ``int8-kv``).
+        Returns (hidden, xattn (B, S, audio_ctx) or None)."""
         capture = alignment_mask is not None
+        kvq = cache.kv_quant
         xattn = None
         for layer, blk in enumerate(self.decoder.blocks):
             q, k, v = blk.attn.project(blk.attn_ln(x))  # each (B,H,S,Dh)
-            cache.self_k[layer].index_copy_(2, pos, k)
-            cache.self_v[layer].index_copy_(2, pos, v)
-            o, _ = _attend(q, cache.self_k[layer], cache.self_v[layer], mask)
+            if kvq:
+                (k8, ksc), (v8, vsc) = _quantize_kv_rows(k), _quantize_kv_rows(v)
+                rows = (k8, v8, ksc, vsc)  # the order of self_buffers
+            else:
+                rows = (k, v)
+            for buf, new in zip(cache.self_buffers(), rows):
+                buf[layer].index_copy_(2, pos, new)
+            kc, vc, *scales = (buf[layer] for buf in cache.self_buffers())
+            if kvq:
+                o, _ = _attend_q8(q, kc, vc, *scales, mask, out_dtype=x.dtype)
+            else:
+                o, _ = _attend(q, kc, vc, mask)
             x = x + blk.attn.out(_merge_heads(o))
             q = _split_heads(blk.cross.query(blk.cross_ln(x)), blk.cross.n_head)
-            o, w = _attend(q, cache.cross_k[layer], cache.cross_v[layer], None,
-                           return_weights=capture)
+            if kvq:
+                o, w = _attend_q8(q, cache.cross_k[layer], cache.cross_v[layer],
+                                  cache.cross_ks[layer], cache.cross_vs[layer], None,
+                                  return_weights=capture, out_dtype=x.dtype)
+            else:
+                o, w = _attend(q, cache.cross_k[layer], cache.cross_v[layer], None,
+                               return_weights=capture)
             x = x + blk.cross.out(_merge_heads(o))
             x = blk.mlp_block(x)
             if capture:  # alignment-head-weighted average of (B,H,S,T) weights
@@ -425,7 +537,7 @@ class Whisper(nn.Module):
         dec = self.decoder
         s = tokens.shape[1]
         pos = pos0 + torch.arange(s, device=tokens.device)
-        x = (self._emb_rows(tokens) + dec.pos_emb[pos]).to(cache.self_k.dtype)
+        x = (self._emb_rows(tokens) + dec.pos_emb[pos]).to(cache.act_dtype)
         # query q may attend to cache key j iff j <= pos0 + q
         j = torch.arange(cache.self_k.shape[3], device=tokens.device)
         mask = torch.where(j[None, :] > pos[:, None], _NEG, 0.0)[None, None]
@@ -443,7 +555,7 @@ class Whisper(nn.Module):
         x = (self._emb_rows(tokens) + dec.pos_emb.index_select(0, pos))[:, None, :]
         j = torch.arange(cache.self_k.shape[3], device=tokens.device)
         mask = torch.where(j > pos, _NEG, 0.0)
-        x, xattn = self._decoder_layers(x.to(cache.self_k.dtype), pos, mask, cache,
+        x, xattn = self._decoder_layers(x.to(cache.act_dtype), pos, mask, cache,
                                         alignment_mask)
         return self.logits(x[:, 0]), (None if xattn is None else xattn[:, 0])
 

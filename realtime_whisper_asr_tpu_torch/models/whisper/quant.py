@@ -2,8 +2,9 @@
 
 Port of ``realtime_whisper_asr_tpu/models/whisper/quant.py``. Each function
 gives, bit for bit, the ``q`` and ``s`` the JAX package's gives on the same
-f32 weights: the same division, round-half-even, clip, 1e-12 scale floor and
-absmax over the same (input) axis. The port keeps torch's (out, in) layout
+f32 weights, on the card too: the same IEEE division (by a tensor,
+``device_constant``), round-half-even, clip, 1e-12 scale floor and absmax
+over the same (input) axis. The port keeps torch's (out, in) layout
 for dense and int8 linears, so
 
 - an int8 linear ``name`` becomes ``name.q`` int8 (out, in) — the JAX ``q``
@@ -31,18 +32,27 @@ from typing import Optional
 
 import torch
 
+from realtime_whisper_asr_tpu_torch.ops.int8_matmul import device_constant
+
 #: int4 scale-group size along the input dim
 INT4_GROUP = 128
 
 #: tier -> (encoder blocks, decoder blocks, int8 tied head); the ASR
-#: backend's ``quantization=`` values
+#: backend's ``quantization=`` values. ``"int8-kv"`` has ``"int8-all"``'s
+#: weights and adds int8 KV caches (``model.Whisper.kv_quant``)
 TIERS = {
     None: (None, None, False),
     "int8": (None, "int8", False),
     "int8-all": ("int8", "int8", True),
+    "int8-kv": ("int8", "int8", True),
     "int4": (None, "int4", True),
     "int4-all": ("int8", "int4", True),
 }
+
+#: how far a tier quantizes, the JAX backend's rank table: a pre-quantized
+#: checkpoint runs a requested tier only if the tier ranks at least as high
+#: (its dense weights are gone, so it cannot be weakened)
+RANK = {"int8": 1, "int8-all": 2, "int8-kv": 2, "int4": 3, "int4-all": 4}
 
 _BLOCK_LINEAR = re.compile(
     r"^(encoder|decoder)\.blocks\.\d+\."
@@ -50,14 +60,10 @@ _BLOCK_LINEAR = re.compile(
 
 
 def tier_layout(quantization: Optional[str]) -> tuple[Optional[str], Optional[str], bool]:
-    """(encoder kind, decoder kind, int8 head) of a tier. ``"int8-kv"``
-    raises ``NotImplementedError`` (int8 KV caches are not ported yet:
-    ROADMAP queue 1, item 9); an unknown value raises ``ValueError``."""
+    """(encoder kind, decoder kind, int8 head) of a tier; an unknown value
+    raises ``ValueError``."""
     if quantization in ("", "none"):
         quantization = None
-    if quantization == "int8-kv":
-        raise NotImplementedError(
-            "quantization='int8-kv' (int8 KV caches) is not ported yet: ROADMAP queue 1, item 9")
     if quantization not in TIERS:
         raise ValueError(f"unknown quantization {quantization!r}")
     return TIERS[quantization]
@@ -70,7 +76,7 @@ def quantize_int8(w: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     """(out, in) weight -> (q int8 (out, in), s f32 (out,)) with absmax
     scales over the input dim (the JAX package's per-column scales)."""
     w32 = w.float()
-    s = torch.clamp(w32.abs().amax(dim=1) / 127.0, min=1e-12)
+    s = torch.clamp(w32.abs().amax(dim=1) / device_constant(127.0, w32.device), min=1e-12)
     q = torch.clamp(torch.round(w32 / s[:, None]), -127, 127).to(torch.int8)
     return q, s
 
@@ -104,7 +110,7 @@ def quantize_int4(w: torch.Tensor, group: int = INT4_GROUP) -> tuple[torch.Tenso
     dout, din = w32.shape
     g = int4_groups(din, group)
     wg = w32.reshape(dout, g, din // g)
-    s = torch.clamp(wg.abs().amax(dim=2) / 7.0, min=1e-12)  # (out, g)
+    s = torch.clamp(wg.abs().amax(dim=2) / device_constant(7.0, w32.device), min=1e-12)
     q = torch.clamp(torch.round(wg / s[:, :, None]), -7, 7).to(torch.int8)
     return pack_int4(q.reshape(dout, din).t()), s.t().contiguous()
 
@@ -126,16 +132,31 @@ def dequant(q: torch.Tensor, s: torch.Tensor) -> torch.Tensor:
 
 
 def _quantize_blocks(state: dict, part: str, kind: str) -> dict:
-    """The dense block linears of ``part`` to ``kind``."""
-    quantize_weight = quantize_int4 if kind == "int4" else quantize_int8
+    """The block linears of ``part`` to ``kind``. Idempotent, as the JAX
+    package's tier transforms: a linear already in ``kind`` stays as it is;
+    int4 takes an int8 linear through its dequantized f32 weight, as the JAX
+    package's ``_quantize_weight_int4`` does; int8 leaves a quantized linear
+    as it is (the JAX ``_quantize_tree`` skips ``{"q", "s"}`` leaves)."""
     out = {}
     for key, w in state.items():
-        m = _BLOCK_LINEAR.match(key)
+        stem = key[:-2] + ".weight" if key.endswith((".q", ".s")) else key
+        m = _BLOCK_LINEAR.match(stem)
         if m is None or m.group(1) != part:
             out[key] = w
             continue
-        name = key[: -len(".weight")]
-        out[f"{name}.q"], out[f"{name}.s"] = quantize_weight(w)
+        if key.endswith(".s"):  # written with its q below
+            continue
+        if key.endswith(".weight"):
+            name = key[: -len(".weight")]
+            quantize_weight = quantize_int4 if kind == "int4" else quantize_int8
+            out[f"{name}.q"], out[f"{name}.s"] = quantize_weight(w)
+            continue
+        name = key[: -len(".q")]
+        s = state[f"{name}.s"]
+        if kind == "int4" and s.ndim != w.ndim:  # int8 -> int4
+            out[f"{name}.q"], out[f"{name}.s"] = quantize_int4(dequant(w, s))
+        else:
+            out[f"{name}.q"], out[f"{name}.s"] = w, s
     return out
 
 
@@ -145,7 +166,10 @@ def quantize_decoder(state: dict) -> dict:
 
 
 def quantize_logits_head(state: dict) -> dict:
-    """The tied ``tok_emb`` to int8 with per-vocabulary-row scales."""
+    """The tied ``tok_emb`` to int8 with per-vocabulary-row scales (as it
+    is when it is int8 already)."""
+    if "decoder.tok_emb" not in state:
+        return dict(state)
     out = {k: v for k, v in state.items() if k != "decoder.tok_emb"}
     out["decoder.tok_emb.q"], out["decoder.tok_emb.s"] = quantize_int8(state["decoder.tok_emb"])
     return out
@@ -170,8 +194,31 @@ def quantize_all_int4(state: dict) -> dict:
 
 
 def quantize(state: dict, quantization: Optional[str]) -> dict:
-    """The tier's transform of a dense state dict (identity for None)."""
+    """The tier's transform of a state dict (identity for None), dense or
+    quantized already: each transform is idempotent, so a tier applied to
+    its own output gives that output again."""
     tier_layout(quantization)
-    fn = {"int8": quantize_decoder, "int8-all": quantize_all, "int4": quantize_decoder_int4,
-          "int4-all": quantize_all_int4}.get(quantization or None)
+    fn = {"int8": quantize_decoder, "int8-all": quantize_all, "int8-kv": quantize_all,
+          "int4": quantize_decoder_int4, "int4-all": quantize_all_int4}.get(quantization or None)
     return fn(state) if fn else dict(state)
+
+
+def _block_kind(state: dict, part: str) -> Optional[str]:
+    """The kind of the first quantized block linear of ``part`` in the state
+    dict's order (int4 by its grouped scales), or None."""
+    for key, q in state.items():
+        if key.startswith(f"{part}.blocks.") and key.endswith(".q"):
+            return "int4" if state[key[:-1] + "s"].ndim == q.ndim else "int8"
+    return None
+
+
+def detect_quantization(state: dict) -> Optional[str]:
+    """``"int8"``, ``"int8-all"``, ``"int4"`` or ``"int4-all"`` when the
+    state dict carries pre-quantized block linears (a checkpoint saved after
+    a tier's transform), else None: the JAX package's
+    ``detect_quantization`` on the same weights. The decoder's blocks name
+    the kind; a quantized encoder block adds ``-all``."""
+    dec = _block_kind(state, "decoder")
+    if dec is None:
+        return None
+    return dec + ("-all" if _block_kind(state, "encoder") is not None else "")

@@ -225,8 +225,15 @@ class HFTokenizer:
         )
 
 
+#: the files of a directory that transformers may build a tokenizer from
+HF_TOKENIZER_FILES = ("tokenizer.json", "tokenizer_config.json", "vocab.json")
+
+
 def get_tokenizer(cfg: WhisperConfig, checkpoint_dir: str | None = None) -> Tokenizer:
-    """vocab.json/merges.txt → self-contained BPE; else transformers; else mock."""
+    """vocab.json/merges.txt → self-contained BPE; else transformers, when the
+    directory holds a tokenizer file (some transformers versions build a
+    tokenizer from a directory with none, which would stand in for the
+    mock); else mock."""
     if checkpoint_dir:
         import os
 
@@ -237,8 +244,9 @@ def get_tokenizer(cfg: WhisperConfig, checkpoint_dir: str | None = None) -> Toke
                 return BPETokenizer.from_dir(checkpoint_dir, cfg)
             except Exception:
                 pass
-        try:
-            return HFTokenizer.from_dir(checkpoint_dir, cfg)
-        except Exception:
-            pass
+        if any(os.path.exists(os.path.join(checkpoint_dir, f)) for f in HF_TOKENIZER_FILES):
+            try:
+                return HFTokenizer.from_dir(checkpoint_dir, cfg)
+            except Exception:
+                pass
     return MockTokenizer(cfg)

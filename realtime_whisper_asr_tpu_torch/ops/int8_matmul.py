@@ -16,22 +16,40 @@ import functools
 import torch
 import torch.nn.functional as F
 
+from realtime_whisper_asr_tpu_torch.device import no_tf32_matmul
+
 
 @functools.lru_cache(maxsize=None)
-def _divisor(device: torch.device) -> torch.Tensor:
-    return torch.tensor(127.0, device=device)
+def device_constant(value: float, device: torch.device) -> torch.Tensor:
+    """``value`` as an f32 tensor on ``device``: a division by it is an IEEE
+    f32 division on either device, where torch on the card divides by a
+    Python or CPU scalar as a multiply by its rounded reciprocal."""
+    return torch.tensor(value, dtype=torch.float32, device=device)
 
 
-def quantize_rows(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+@functools.lru_cache(maxsize=None)
+def _reciprocal(device: torch.device) -> torch.Tensor:
+    return device_constant(1.0, device) / device_constant(127.0, device)
+
+
+def quantize_rows(x: torch.Tensor, compiled: bool = False) -> tuple[torch.Tensor, torch.Tensor]:
     """Dynamic per-row absmax int8 quantization of activations, as the JAX
     package's ``_linear``: (…, K) -> (xq int8 (…, K), sx f32 (…, 1)).
 
-    Both divisions are IEEE f32 divisions on either device. The absmax is
-    divided by a 127 that lies on x's device: on the card, torch divides by
-    a Python or CPU scalar as a multiply by its rounded reciprocal, which can
-    differ in the last bit (the int4 kernel divides, as the JAX package)."""
+    The scale is the absmax over 127 and xq is round(x / sx), half to even,
+    clipped to ±127. ``compiled=False``: both are IEEE f32 divisions on
+    either device (``device_constant``), as the JAX functions compute them
+    called eagerly and as the int4 kernel divides. ``compiled=True``: the scale is the absmax times the f32
+    reciprocal of 127, as XLA compiles the JAX package's ``/ 127.0`` in its
+    jitted decode (it rewrites a division by a constant so; the division by
+    sx stays IEEE). The two scales differ in the last bit for some rows,
+    and at bf16 activations many x / sx land on exact .5 ties, where that
+    bit decides the rounding."""
     x32 = x.float()
-    sx = torch.clamp(x32.abs().amax(dim=-1, keepdim=True) / _divisor(x32.device), min=1e-12)
+    amax = x32.abs().amax(dim=-1, keepdim=True)
+    sx = (amax * _reciprocal(x32.device) if compiled
+          else amax / device_constant(127.0, x32.device))
+    sx = torch.clamp(sx, min=1e-12)
     xq = torch.clamp(torch.round(x32 / sx), -127, 127).to(torch.int8)
     return xq, sx
 
@@ -58,3 +76,33 @@ def int8_matmul(xq: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
         if rows != m:
             xq = F.pad(xq, (0, 0, 0, rows - m))
     return torch._int_mm(xq.contiguous(), w.t())[:m]
+
+
+#: the longest contraction whose int8 × int8 sums an f32 GEMM keeps exact:
+#: every partial sum of K products of |q| ≤ 127 is an integer of magnitude
+#: at most K · 127² < 2^24 (K · 16,129 ≤ 16,774,160 at K = 1,040)
+EXACT_F32_K = (2**24 - 1) // (127 * 127)
+
+
+def int8_bmm(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """a (…, M, K) int8 @ b (…, K, N) int8 -> (…, M, N) int32, exact, with
+    torch.matmul's broadcasting of the leading dims: the JAX package's
+    ``dot_general(..., preferred_element_type=int32)`` of ``int8-kv``'s
+    attention products.
+
+    torch has no batched int8 product on the card, so this is an f32 GEMM
+    of the integer values, exact while every partial sum stays below 2^24:
+    the contraction runs in chunks of at most ``EXACT_F32_K`` and the chunk
+    sums, exact integers, are added in int32. TF32 would round the operands
+    to 10-bit mantissas and a bf16 reduction would round the sums, so the
+    GEMM runs with cuBLAS's TF32 switched off (bf16 reductions apply only to
+    bf16 operands)."""
+    if a.dtype != torch.int8 or b.dtype != torch.int8:
+        raise TypeError(f"int8_bmm takes int8 operands, got {a.dtype} and {b.dtype}")
+    out = None
+    with no_tf32_matmul():
+        for k0 in range(0, a.shape[-1], EXACT_F32_K):
+            part = torch.matmul(a[..., k0 : k0 + EXACT_F32_K].float(),
+                                b[..., k0 : k0 + EXACT_F32_K, :].float()).to(torch.int32)
+            out = part if out is None else out + part
+    return out

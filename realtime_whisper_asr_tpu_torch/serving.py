@@ -76,41 +76,71 @@ class _Stream:
         self.inflight = False  # a dispatched tick awaits finalize
 
 
-def _hbm_safe_batch(cfg, param_bytes: int, hbm_bytes: Optional[int]) -> Optional[int]:
+#: the share of the card's memory the cap leaves to the caching allocator's
+#: fragmentation (reserved but not allocated), and the bytes it leaves to the
+#: CUDA context, cuBLAS/cuDNN workspaces and the CUDA graphs' scratch: the
+#: JAX package's constants (calibrated on a 16 GB TPU v5e), kept for the
+#: card and held there by chip_smoke.py's phase_serving, which reads the
+#: context's bytes (``torch.cuda.mem_get_info`` beside the allocator's
+#: reserved bytes) and the fragmentation at the serving peak and fails if
+#: either exceeds its constant
+HOLD_BACK = 0.15
+FIXED_BYTES = 3 * 2**30
+
+
+def _hbm_safe_batch(cfg, param_bytes: int, hbm_bytes: Optional[int], kv_quant: bool = False,
+                    itemsize: int = 2) -> Optional[int]:
     """Largest per-dispatch decode batch whose working set fits device
     memory, or None when the device's memory size is unknown (the CPU).
 
     The pipelined scheduler keeps up to TWO dispatched tick groups alive on
     the device at once (step() dispatches round N+1 before finalizing round
-    N), and each batch row of a dispatched tick holds bf16 cross-attention
-    K/V for the full encoder context plus self K/V and encoder transients.
-    The JAX package calibrated the constants (15 % held back, 3 GiB of
-    program buffers) on a 16 GB TPU v5e, where large-v3 ``int8-all`` served
-    2 x 16 rows and failed at 2 x 17; the formula is kept as it is here.
-    The port's CUDA graph pool and each loop shape's state buffers are
-    per-row costs it does not count.
-    """
+    N), as the JAX package's formula says, so the budget (the card's memory
+    less ``HOLD_BACK``, the weights and ``FIXED_BYTES``) is split over two
+    groups of ``_row_bytes`` a row. ``itemsize``: the bytes of the model's
+    dtype; ``kv_quant``: the ``int8-kv`` tier's int8 caches."""
     if not hbm_bytes or cfg is None:
         return None
-    budget = int(hbm_bytes * 0.85) - int(param_bytes) - 3 * 2**30
-    return max(1, budget // (2 * _row_bytes(cfg)))
+    budget = int(hbm_bytes * (1 - HOLD_BACK)) - int(param_bytes) - FIXED_BYTES
+    return max(1, budget // (2 * _row_bytes(cfg, kv_quant, itemsize)))
 
 
-def _row_bytes(cfg) -> int:
-    """``_hbm_safe_batch``'s working set of one batch row of one dispatched
-    group: bf16 cross K/V over the full encoder context, bf16 self K/V over
-    a conservative 256-token context, and the encoder's transients."""
-    d = cfg.n_text_state
-    cross_kv = int(2 * cfg.n_text_layer * cfg.n_audio_ctx * d * 2.0)
-    self_kv = int(2 * cfg.n_text_layer * 256 * d * 2.0)
-    enc_transient = 4 * cfg.n_audio_ctx * d * 2
-    return cross_kv + self_kv + enc_transient
+def _row_bytes(cfg, kv_quant: bool = False, itemsize: int = 2) -> int:
+    """What one batch row costs the card, from what the port allocates:
+
+    - the decode loop's state of one row (``decode._new_state``) at the
+      largest loop shape: the 30 s window bucket (``n_audio_ctx`` cross
+      frames), a self cache of ``n_text_ctx`` positions, 224 capture rows
+      (the largest loop bound) and ``n_text_ctx`` token slots. Cross and
+      self K/V in the model's dtype, or under ``kv_quant`` int8 rows plus an
+      f32 scale a row of Dh, i.e. 1 + 4/Dh bytes an element;
+    - times ``decode.MAX_GRAPHS``: each loop shape the ``DecodeLoop`` keeps
+      holds its own state buffers for its batch rows (the two groups in
+      flight run in two of them);
+    - plus the encoder's score transient of one row at the 30 s bucket: the
+      f32 scores and their scaled copy and the softmax weights cast to the
+      model's dtype, ``n_audio_head × n_audio_ctx²`` elements each (one
+      layer's at a time).
+
+    ``tests/test_torch_serving.py`` holds the state part equal to
+    ``decode._state_bytes`` of states allocated at that shape."""
+    from realtime_whisper_asr_tpu_torch.models.whisper.decode import MAX_GRAPHS
+
+    dh = cfg.n_text_state // cfg.n_text_head
+    kv_elem = 1 + 4 / dh if kv_quant else itemsize
+    kv = 2 * cfg.n_text_layer * cfg.n_text_state * (cfg.n_text_ctx + cfg.n_audio_ctx) * kv_elem
+    capture = 224 * cfg.n_audio_ctx * 4
+    scalars = cfg.n_text_ctx * 8 + 1 + 4 + 3 * 8  # tokens; finished, sum_lp, last_ts, total, n_prefix
+    state_row = int(kv) + capture + scalars
+    scores = cfg.n_audio_head * cfg.n_audio_ctx**2 * (2 * 4 + itemsize)
+    return MAX_GRAPHS * state_row + scores
 
 
 def _device_batch_cap(asr) -> Optional[int]:
     """``_hbm_safe_batch`` for a model on the card: its parameter and
-    buffer bytes (the int8/int4 weights are buffers) and the card's memory;
-    None for a backend without a model or one on the CPU."""
+    buffer bytes (the int8/int4 weights are buffers), its dtype and cache
+    kind, and the card's memory; None for a backend without a model or one
+    on the CPU."""
     model = getattr(asr, "model", None)
     cfg = getattr(asr, "cfg", None)
     device = getattr(asr, "device", None)
@@ -118,7 +148,10 @@ def _device_batch_cap(asr) -> Optional[int]:
         return None
     nbytes = sum(t.numel() * t.element_size()
                  for t in itertools.chain(model.parameters(), model.buffers()))
-    return _hbm_safe_batch(cfg, nbytes, torch.cuda.get_device_properties(device).total_memory)
+    dtype = getattr(model, "dtype", torch.bfloat16)
+    itemsize = dtype.itemsize if isinstance(dtype, torch.dtype) else 2
+    return _hbm_safe_batch(cfg, nbytes, torch.cuda.get_device_properties(device).total_memory,
+                           kv_quant=bool(getattr(model, "kv_quant", False)), itemsize=itemsize)
 
 
 def _silero_factory(device) -> Callable[[], object]:

@@ -122,12 +122,14 @@ def _parser(description: str, port: int) -> argparse.ArgumentParser:
     p.add_argument("--model", default="large-v3-turbo")
     p.add_argument("--language", default="en")
     p.add_argument("--checkpoint", default=None,
-                   help="not ported yet (ROADMAP queue 1 item 8): raises")
+                   help="checkpoint directory: the port's native format or the HF layout "
+                        "(config.json + *.safetensors); --model is then ignored")
     p.add_argument("--quantization", default="int8-all",
                    choices=["int8-all", "int8", "int8-kv", "none"],
-                   help="int8-all: int8 encoder, decoder and head; int8-kv raises "
-                        "(ROADMAP queue 1 item 9)")
+                   help="int8-all: int8 encoder, decoder and head; int8-kv: int8-all plus "
+                        "int8 KV caches; a pre-quantized checkpoint is never weakened")
     p.add_argument("--prefix-policy", default="last", choices=["agree2", "last"])
+    p.add_argument("--device", default="cuda", help="the model's device (cpu: the plain path)")
     p.add_argument("--diarize", action="store_true",
                    help="not ported yet (ROADMAP queue 1 item 13): raises")
     p.add_argument("--separation", default="none", choices=["none", "filter", "neural"],
@@ -137,20 +139,19 @@ def _parser(description: str, port: int) -> argparse.ArgumentParser:
 
 def _stream_server(args):
     """A StreamServer over ``TorchWhisperASR`` in bf16 on the card, as
-    ``args`` ask; raises for what the port does not have yet."""
+    ``args`` ask (``--checkpoint`` loads a directory, else ``--model``'s
+    random weights); raises for what the port does not have yet."""
     import torch
 
     from realtime_whisper_asr_tpu_torch.asr import TorchWhisperASR
     from realtime_whisper_asr_tpu_torch.serving import StreamServer
 
-    if args.checkpoint:
-        raise NotImplementedError("--checkpoint: the checkpoint loaders are not ported yet "
-                                  "(ROADMAP queue 1 item 8)")
     if args.diarize or args.separation != "none":
         raise NotImplementedError("--diarize and --separation are not ported yet "
                                   "(ROADMAP queue 1 item 13)")
     asr = TorchWhisperASR(model_size=args.model, language=args.language, dtype=torch.bfloat16,
-                          device="cuda", quantization=args.quantization)
+                          device=args.device, quantization=args.quantization,
+                          checkpoint_dir=args.checkpoint)
     return StreamServer(asr, prefix_policy=args.prefix_policy)
 
 

@@ -1,2 +1,2 @@
-"""Measurement tools of the port that run on the card (importing them runs
-nothing)."""
+"""Tools of the port: checkpoint conversion, and measurements that run on
+the card (importing them runs nothing)."""

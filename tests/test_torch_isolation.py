@@ -1,7 +1,8 @@
 """The port stands alone and runs on the card unless asked otherwise.
 
 - Importing every module of ``realtime_whisper_asr_tpu_torch`` (and
-  ``chip_smoke.py``) pulls in neither ``jax`` nor the JAX package; nor do
+  ``chip_smoke.py``) pulls in neither ``jax`` nor the JAX package, and
+  works with ``safetensors``, ``transformers`` and ``orbax`` absent; nor do
   the serving modules (``serving``, ``serving_tcp``, ``serving_ws``,
   ``pipeline``, ``services``) alone. The name check is exact: the port's
   own name starts with the JAX package's.
@@ -50,6 +51,31 @@ sys.exit(1 if bad or len(names) < 10 else 0)
 def test_port_and_chip_smoke_import_no_jax():
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     proc = subprocess.run([sys.executable, "-c", _IMPORT_ALL], cwd=ROOT, env=env,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+_IMPORT_BLOCKED = r"""
+import sys
+for name in ("safetensors", "transformers", "orbax"):  # absent on the card's machine
+    sys.modules[name] = None
+import importlib, pkgutil, runpy
+import realtime_whisper_asr_tpu_torch as pkg
+names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")]
+for name in names:
+    importlib.import_module(name)
+runpy.run_path("chip_smoke.py", run_name="not_main")
+sys.exit(0 if len(names) >= 10 else 1)
+"""
+
+
+def test_port_imports_without_safetensors_transformers_orbax():
+    """Every module of the port, and chip_smoke.py, imports with
+    ``safetensors``, ``transformers`` and ``orbax`` unimportable, as on the
+    card's machine: the checkpoint loaders read safetensors with the port's
+    own reader."""
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    proc = subprocess.run([sys.executable, "-c", _IMPORT_BLOCKED], cwd=ROOT, env=env,
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stdout + proc.stderr
 
@@ -128,14 +154,15 @@ def test_serving_modules_import_no_jax():
 
 @pytest.mark.parametrize("args,error,match", [
     ([], RuntimeError, "CUDA"),
-    (["--checkpoint", "ckpt"], NotImplementedError, "item 8"),
+    (["--checkpoint", "ckpt"], FileNotFoundError, "ckpt"),
     (["--diarize"], NotImplementedError, "item 13"),
     (["--separation", "filter"], NotImplementedError, "item 13"),
 ], ids=["no-cuda", "checkpoint", "diarize", "separation"])
 @pytest.mark.parametrize("module", ["serving_tcp", "serving_ws"])
 def test_serving_mains_refuse(monkeypatch, module, args, error, match):
     """The servers' CLIs build the ASR on the card (and raise without CUDA),
-    and raise for the flags of slices not ported yet."""
+    raise for a checkpoint directory that is not there, and for the flags
+    of slices not ported yet."""
     import importlib
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)

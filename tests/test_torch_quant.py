@@ -299,9 +299,12 @@ def test_golden_quantized_rows_reproduce_exactly(tier, row):
 
 
 def test_tier_errors():
+    """An unknown tier raises; ``"int8-kv"``, which raised before it was
+    ported, builds int8-all's layout with int8 caches."""
     cfg = C.get_config("test-tiny")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        TorchWhisperASR(cfg=cfg, device="cpu", quantization="int8-kv")
+    kv = TorchWhisperASR(cfg=cfg, device="cpu", quantization="int8-kv")
+    assert kv.quantization == "int8-kv" and kv.model.kv_quant
+    assert kv.model.empty_cache(1, 10, 8, torch.float32, "cpu").self_k.dtype == torch.int8
     with pytest.raises(ValueError, match="unknown quantization"):
         TorchWhisperASR(cfg=cfg, device="cpu", quantization="int3")
     assert TorchWhisperASR(cfg=cfg, device="cpu", quantization="none").quantization is None

@@ -348,28 +348,68 @@ def test_diarize_and_separation(pkg):
 
 @pytest.mark.parametrize("name", ["large-v3", "tiny"])
 def test_hbm_safe_batch_same_numbers(pkg, name):
-    """The memory-safe dispatch batch: the same formula and numbers in both
-    packages (calibrated by the JAX package on a 16 GB v5e: large-v3
-    int8-all serves 2 x 16 rows, fails at 2 x 17)."""
+    """The memory-safe dispatch batch. JAX: the formula calibrated on a 16 GB
+    v5e (large-v3 int8-all serves 2 x 16 rows, fails at 2 x 17). Port: the
+    same budget and two groups in flight over the row cost the port
+    allocates (``_row_bytes``, locked by
+    ``test_row_bytes_equals_allocated_loop_state``), so its numbers are its
+    own: large-v3 int8-all on an 80 GiB card takes 11 rows a group, 18 at
+    int8-kv."""
     cfg = (W.get_config if pkg.name == "jax" else get_config)(name)
     f = pkg.serving._hbm_safe_batch
-    if name == "large-v3":
+    if pkg.name == "jax" and name == "large-v3":
         cap = f(cfg, 1_600_000_000, 16 * 2**30)
         assert cap is not None and 16 <= cap < 32, cap
         assert f(cfg, 15 * 2**30, 16 * 2**30) == 1
-        assert f(cfg, 1_600_000_000, 80 * 10**9) == JS._hbm_safe_batch(
-            W.get_config(name), 1_600_000_000, 80 * 10**9)
-    else:
+    elif pkg.name == "jax":
         assert f(cfg, 80_000_000, 16 * 2**30) > 64
+    elif name == "large-v3":
+        int8all = int(1.74 * 2**30)  # large-v3 int8-all's parameters and buffers on the card
+        assert f(cfg, int8all, 80 * 2**30) == 11
+        assert f(cfg, int8all, 80 * 2**30, kv_quant=True) == 18
+        assert f(cfg, 15 * 2**30, 16 * 2**30) == 1
+    else:
+        assert f(cfg, 80_000_000, 16 * 2**30) > 8  # above the server's default max_batch
     assert f(cfg, 1_600_000_000, None) is None
     assert f(None, 0, 16 * 2**30) is None
+
+
+@pytest.mark.parametrize("kv_quant", [False, True], ids=["bf16", "int8-kv"])
+def test_row_bytes_equals_allocated_loop_state(kv_quant):
+    """The port's row cost against what its decode loop allocates:
+    ``MAX_GRAPHS`` times the state bytes one row adds at the largest loop
+    shape (30 s bucket, the whole self cache, the 224-step bound with word
+    capture), plus the encoder's score transient; and the int8-kv cap above
+    the bf16 one, as tests/test_serving.py asserts of the JAX package."""
+    from realtime_whisper_asr_tpu_torch.models.whisper import decode as D
+    from realtime_whisper_asr_tpu_torch.models.whisper.model import Whisper
+
+    cfg = get_config("test-tiny")
+    model = Whisper.empty(cfg, torch.bfloat16, "cpu", "int8-kv" if kv_quant else None)
+    opts = D.DecodeOptions(word_timestamps=True, max_new_tokens=10**6)
+    max_new, _ = D.plan_decode_budget(cfg, opts, 8, 0)
+    assert max_new == 224  # the largest loop bound
+    p = cfg.n_text_ctx - max_new
+
+    def state_bytes(batch: int) -> int:
+        key = D.LoopKey(id(model), cfg.n_audio_ctx, p, max_new, cfg.n_text_ctx, 0, batch,
+                        opts, (), None)
+        return D._state_bytes(D._new_state(model, key, torch.bfloat16, "cpu"))
+
+    row = state_bytes(2) - state_bytes(1)
+    assert state_bytes(1) == row + 16  # the shared position and loop end
+    scores = cfg.n_audio_head * cfg.n_audio_ctx**2 * (4 + 4 + 2)
+    assert PS._row_bytes(cfg, kv_quant, 2) == D.MAX_GRAPHS * row + scores
+    big = get_config("large-v3")
+    assert (PS._hbm_safe_batch(big, 2 * 10**9, 80 * 2**30, kv_quant=True)
+            > PS._hbm_safe_batch(big, 2 * 10**9, 80 * 2**30))
 
 
 def test_server_clamps_oversized_max_batch(pkg, monkeypatch):
     """A max_batch above the memory-safe batch is clamped at construction.
     JAX: the params tree's bytes and a pinned 16 GB HBM probe. Port: the
     model's parameter and buffer bytes (a meta-device buffer, nothing
-    allocated) and a 16 GiB card."""
+    allocated) and an 80 GiB card."""
     asr = PerStreamFakeASR({1: [(0.5, 0.9, " one")]})
     if pkg.name == "jax":
         import jax.numpy as jnp
@@ -379,6 +419,7 @@ def test_server_clamps_oversized_max_batch(pkg, monkeypatch):
         monkeypatch.setattr(hardware, "detect_hardware", lambda: {"hbm_bytes": 16 * 2**30})
         asr.cfg = W.get_config("large-v3")
         asr.params = {"w": jnp.zeros(1_600_000_000 // 4, jnp.float32)}
+        low = 16
     else:
         asr.cfg, asr.device = get_config("large-v3"), torch.device("cuda")
         asr.model = torch.nn.Module()
@@ -386,8 +427,9 @@ def test_server_clamps_oversized_max_batch(pkg, monkeypatch):
                                                    device="meta"))
         asr.model.w = torch.nn.Parameter(torch.empty(100_000_000, device="meta"))
         monkeypatch.setattr(torch.cuda, "get_device_properties",
-                            lambda d: types.SimpleNamespace(total_memory=16 * 2**30))
+                            lambda d: types.SimpleNamespace(total_memory=80 * 2**30))
+        low = 8
     server = pkg.StreamServer(asr, use_vad=False, max_batch=32)
     assert server.get_stats()["device_batch_cap"] == server.max_batch
-    assert 16 <= server.max_batch < 32
+    assert low <= server.max_batch < 32
     assert pkg.StreamServer(asr, use_vad=False, max_batch=4).max_batch == 4
