@@ -100,7 +100,21 @@ Phases, each failing the run with a non-zero exit:
      and ``int4`` artifacts, each token-identical to quantizing at load
      (K2's launches as predicted for int4); ``int8-kv`` from the same
      directory, its graph path bit-equal to the uncaptured loop at the 16 s
-     and 30 s windows.
+     and 30 s windows;
+ 14. beam search and sampling (``phase_beam``): large-v3 beam 5 over a 16 s
+     window at bf16 and at ``int8-kv``, the graph path bit-equal to the
+     uncaptured loop (tokens, score, no-speech probability, capture), host
+     ms a token and kernel ms a beam step beside greedy's B = 1 step; the
+     retry ladder with all five rungs on one captured loop shape and the
+     seed advanced by 5; the sampler's bits and Gumbel values on the card
+     against the CPU's; ``detect_language``; ``decode_full``'s logits
+     against ``decode_span``'s; ``int4`` beam 5 with K2's launches as
+     predicted (5 rows a step); beam 5 through ``StreamServer`` at
+     ``int8-all``, N = 4 streams of 8 s (aggregate RTF, the growth a stream
+     under ``_row_bytes`` for 5 beams). Phase 4 adds, on the golden weights:
+     the ``beam5`` row, batched beam equal to per-row beam, the ladder's
+     tokens and ``detect_language`` equal to the port's on the CPU, and
+     ``decode_full`` within 1e-4 of ``decode_span``.
 Prints each phase's seconds, one ``{"kernels": [...]}`` line, then as the
 last line
 ``{"ok": true, "device": {...}}``. Exits non-zero without a result when CUDA
@@ -659,6 +673,7 @@ def phase_golden(guard: FailOnLog):
     print("golden f32 pipelined rows: the sync, exact and async commits of 3 clips under prefix "
           "policy \"last\" equal pipeline_async.sync_commits, pipeline_exact.commits and "
           "pipeline_async.commits; exact equals sync")
+    check_golden_beam(asr, guard)
     return asr
 
 
@@ -1740,14 +1755,14 @@ def check_batch_graph_equals_uncaptured(asr, label: str, clips: list) -> None:
 
 
 def _memory_row_estimate(asr) -> tuple[int, int]:
-    """(``_hbm_safe_batch``'s cost of one row for the model's dtype and cache
-    kind, the model's parameter and buffer bytes)."""
+    """(``_hbm_safe_batch``'s cost of one row for the model's dtype, cache
+    kind and the ASR's beams, the model's parameter and buffer bytes)."""
     import itertools
 
-    from realtime_whisper_asr_tpu_torch.serving import _row_bytes
+    from realtime_whisper_asr_tpu_torch.serving import _beam_size, _row_bytes
 
     model = asr.model
-    return (_row_bytes(asr.cfg, model.kv_quant, model.dtype.itemsize),
+    return (_row_bytes(asr.cfg, model.kv_quant, model.dtype.itemsize, _beam_size(asr)),
             sum(t.numel() * t.element_size()
                 for t in itertools.chain(model.parameters(), model.buffers())))
 
@@ -1851,6 +1866,30 @@ def run_capacity(asr, n: int, seconds: int, label: str, guard: FailOnLog) -> dic
             "cap": server.device_batch_cap, "shapes": len(loop._graphs), "split": split}
 
 
+def record_loop_steps(loop) -> list:
+    """Wrap ``loop``'s ``loop`` and ``run`` (undo with ``del loop.loop,
+    loop.run``) to record the rows of every step it takes from now on: its
+    warm-up steps and each replayed or uncaptured step, B rows a step, B·K
+    for a beam search of K beams. Returns the list they append to."""
+    steps: list[int] = []
+    loop_of, run_of = loop.loop, loop.run
+
+    def recording_loop(model, key, *args):
+        w0 = loop.stats["warmup_steps"]
+        out = loop_of(model, key, *args)
+        steps.extend([key.batch * key.beam_size] * (loop.stats["warmup_steps"] - w0))
+        return out
+
+    def recording_run(lp, steps_max):
+        r0, e0 = loop.stats["replays"], loop.stats["eager_steps"]
+        run_of(lp, steps_max)
+        n_steps = loop.k * (loop.stats["replays"] - r0) + loop.stats["eager_steps"] - e0
+        steps.extend([lp.state.tokens.shape[:-1].numel()] * n_steps)
+
+    loop.loop, loop.run = recording_loop, recording_run
+    return steps
+
+
 def check_row_memory(asr, label: str, smi: str, run: dict, growth: float, how: str) -> None:
     """The measured peak growth a row against ``_row_bytes`` (the repaired
     formula's cost of a row for the model's tier) and ``_hbm_safe_batch``'s
@@ -1873,7 +1912,7 @@ def check_row_memory(asr, label: str, smi: str, run: dict, growth: float, how: s
         raise AssertionError(f"{label}: the serving cap's formula is breached on the card")
 
 
-def profile_decode_split(asr, label: str, b: int, replays: int = 5) -> dict:
+def profile_decode_split(asr, label: str, b: int, replays: int = 2) -> dict:
     """Kernel time of the decode loop's step at batch ``b`` by name: one
     batched decode of ``b`` rows (8 s windows, no prefix, the serving caps)
     captures its graph, then ``replays`` replays of that graph (K steps
@@ -2052,21 +2091,7 @@ def phase_serving(guard: FailOnLog, smi: str) -> dict:
     lap("init int4")
     loop = asr.decode_loop
     rows = count_k2_rows(asr.model)
-    steps: list[int] = []  # the rows of each loop step: warm-ups and replays
-    loop_of, run_of = loop.loop, loop.run
-
-    def recording_loop(model, key, *args):
-        w0 = loop.stats["warmup_steps"]
-        out = loop_of(model, key, *args)
-        steps.extend([key.batch] * (loop.stats["warmup_steps"] - w0))
-        return out
-
-    def recording_run(lp, steps_max):
-        r0, e0 = loop.stats["replays"], loop.stats["eager_steps"]
-        run_of(lp, steps_max)
-        n_steps = loop.k * (loop.stats["replays"] - r0) + loop.stats["eager_steps"] - e0
-        steps.extend([lp.state.tokens.shape[0]] * n_steps)
-
+    steps = record_loop_steps(loop)
     encoded: list[int] = []
     encode = asr._encode_many
 
@@ -2074,7 +2099,7 @@ def phase_serving(guard: FailOnLog, smi: str) -> dict:
         encoded.append(len(keys))
         return encode(keys, n_samples)
 
-    loop.loop, loop.run, asr._encode_many = recording_loop, recording_run, counted_encode
+    asr._encode_many = counted_encode
     n = SERVING_STREAMS[0]
     server = StreamServer(asr, use_vad=False, online_chunk_size=0.5, prefix_policy="last",
                           max_batch=max(n, 2))
@@ -2091,6 +2116,7 @@ def phase_serving(guard: FailOnLog, smi: str) -> dict:
     # ----
     del loop.loop, loop.run, asr._encode_many
     graphs = {k: loop.stats[k] - stats0[k] for k in loop.stats}
+    steps = list(steps)
     if server.group_failures or guard.records:
         raise AssertionError(f"{label}: {server.group_failures} group failures, logged errors "
                              f"{guard.records}")
@@ -2115,6 +2141,396 @@ def phase_serving(guard: FailOnLog, smi: str) -> dict:
     print(f"phase_serving seconds: {parts}")
     return {"logmel": launched["logmel"], "int4": launched["int4"],
             "rtf": {k: v["rtf"] for k, v in runs.items()}}
+
+
+#: phase_beam's cell: beams, and the server's streams of 8 s a stream
+BEAM_SIZE = 5
+BEAM_STREAMS = 4
+BEAM_SECONDS = 8
+
+
+def graph_step_ms(loop, replays: int = 2):
+    """(the loop shape used last, the kernel ms a step of its graph): the
+    graph replayed ``replays`` times under ``torch.profiler`` (past the
+    loop's end a step still runs every kernel and writes nothing); None for
+    the time when no kernel was traced. The trace's processing, not the
+    replays, takes the time: 10.3 s for 5 replays at ``int8-kv``."""
+    import torch
+
+    key, graph = next(reversed(loop._graphs.items()))
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=acts) as prof, torch.inference_mode():
+        for _ in range(replays):
+            graph.run_k()
+        torch.cuda.synchronize()
+    events = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
+    if not events:
+        return key, None
+    return key, sum(e.self_device_time_total for e in events) / 1e3 / (replays * loop.k)
+
+
+def check_beam_graph_equals_uncaptured(asr, label: str, xa, plan):
+    """A beam search's packed result (tokens, score, length, no-speech
+    probability, the winner's capture) through the ASR's graph path and
+    through the same step run uncaptured on the card, bit for bit. Returns
+    the graph path's packed result on the host."""
+    import torch
+
+    from realtime_whisper_asr_tpu_torch.models.whisper import decode as D
+
+    opts = asr._make_opts()
+    aux = torch.from_numpy(plan.aux).cuda()[None]
+    graph, plain = (D._decode_window(asr.model, opts, xa, aux, plan, asr._extra_suppress, None,
+                                     loop, captured=captured).cpu()
+                    for loop, captured in ((asr.decode_loop, True),
+                                           (D.DecodeLoop(k=asr.decode_loop.k), False)))
+    if not torch.equal(graph.view(torch.int32), plain.view(torch.int32)):
+        diff = (graph[: plan.max_new] != plain[: plan.max_new]).nonzero()
+        where = (f"first differing token {int(diff[0])}" if len(diff) else
+                 f"tokens equal, the rest differs by {float((graph - plain).abs().max()):.3g}")
+        raise AssertionError(f"{label}: the beam graph path differs from the uncaptured loop: "
+                             f"{where}")
+    print(f"{label}: beam {opts.beam_size} graph path bit-equal to the uncaptured loop on the "
+          f"card: tokens, score {float(graph[plan.max_new]):.4f}, length "
+          f"{int(graph[plan.max_new + 1])}, no-speech probability and "
+          f"{graph.numel() - plan.max_new - 3} capture words")
+    return graph
+
+
+def beam_window_readings(asr, label: str, audio: np.ndarray) -> dict:
+    """At ``audio``'s window: the beam graph path against the uncaptured
+    loop (``check_beam_graph_equals_uncaptured``), the beam window's host ms
+    a token (median of 3 windows, graphs captured), the kernel ms a step of
+    its graph and of the greedy B = 1 graph of the same window beside it,
+    and the loop's captures, graph pool and state bytes."""
+    import torch
+
+    from realtime_whisper_asr_tpu_torch.models.whisper import beam as BM
+    from realtime_whisper_asr_tpu_torch.models.whisper import decode as D
+
+    loop = asr.decode_loop
+    stats0 = dict(loop.stats)
+    with torch.inference_mode():
+        xa = asr._logmel_encode(torch.from_numpy(asr._pad_window(audio)).cuda())
+    opts = asr._make_opts()
+    plan = D.plan_window(asr.cfg, opts)
+    packed = check_beam_graph_equals_uncaptured(asr, label, xa, plan)
+    aux = torch.from_numpy(plan.aux).cuda()
+    times = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = BM.beam_decode(asr.model, xa, opts, plan, aux, extra_suppress=asr._extra_suppress,
+                             loop=loop)
+        times.append(time.perf_counter() - t0)
+    n_tokens = int(res.lengths[0])
+    key, beam_ms = graph_step_ms(loop)
+    if key.beam_size != opts.beam_size:
+        raise AssertionError(f"{label}: the last loop shape is not the beam search's: {key}")
+    D.greedy_decode(asr.model, xa, dataclasses.replace(opts, beam_size=1), plan, aux,
+                    asr._extra_suppress, loop=loop)
+    _, greedy_ms = graph_step_ms(loop)
+    graphs = {k: loop.stats[k] - stats0[k] for k in loop.stats}
+
+    def ms(v):
+        return "not measured" if v is None else f"{v:.3f} ms"
+
+    print(f"{label}: beam {opts.beam_size} over a {xa.shape[1] // 50} s window: "
+          f"{1e3 * float(np.median(times)) / n_tokens:.2f} ms a token on the host clock (median "
+          f"of 3 windows of {n_tokens} tokens, prefill included); kernels {ms(beam_ms)} a beam "
+          f"step (B x K = {opts.beam_size} rows, self block {key.cache_len} x {opts.beam_size}) "
+          f"beside the greedy B=1 step's {ms(greedy_ms)}; {graphs['captures']} captures in "
+          f"{graphs['capture_s']:.2f} s, graph pool {loop.stats['graph_bytes'] / 2**20:.1f} MiB, "
+          f"state buffers {graphs['state_bytes'] / 2**20:.1f} MiB, {graphs['replays']} replays")
+    return {"xa": xa, "plan": plan, "packed": packed, "beam_ms": beam_ms, "greedy_ms": greedy_ms}
+
+
+def check_sampler_card_equals_cpu(label: str) -> None:
+    """The seeded sampler (``ops/threefry.py``) on an (8, 51865) logits
+    tensor, rows of their own seed, position and temperature: the card's
+    32-bit draws equal to the CPU's, its Gumbel values within 2 ulp (the
+    same IEEE ops on both, so 0 is expected), the sampled tokens equal; with
+    the sampler's device time."""
+    import torch
+
+    from realtime_whisper_asr_tpu_torch.ops import threefry
+
+    gen = torch.Generator().manual_seed(0)
+    logits = torch.randn(8, 51865, generator=gen) * 4.0
+    seeds = torch.arange(8) + 7
+    pos = torch.arange(8) * 13 + 5
+    temps = torch.linspace(0.2, 1.0, 8)
+    out = {}
+    for dev in ("cpu", "cuda"):
+        key = threefry.fold_in(threefry.prng_key(seeds.to(dev)), pos.to(dev))
+        out[dev] = [threefry.random_bits(key, 51865).cpu(), threefry.gumbel(key, 51865).cpu(),
+                    threefry.sample(logits.to(dev), seeds.to(dev), pos.to(dev),
+                                    temps.to(dev)).cpu()]
+    (bits, g, tok), (bits_c, g_c, tok_c) = out["cpu"], out["cuda"]
+    ulp = int((g.view(torch.int32).long() - g_c.view(torch.int32).long()).abs().max())
+    if not torch.equal(bits, bits_c) or ulp > 2 or not torch.equal(tok, tok_c):
+        raise AssertionError(f"{label}: the card's sampler differs from the CPU's (bits equal "
+                             f"{torch.equal(bits, bits_c)}, Gumbel {ulp} ulp, tokens "
+                             f"{tok.tolist()} vs {tok_c.tolist()})")
+    args = (logits.cuda(), seeds.cuda(), pos.cuda(), temps.cuda())
+    sample_ms = time_cuda_ms(lambda: threefry.sample(*args), reps=10, cold=False)
+    print(f"{label}: the sampler on the card equals the CPU's on (8, 51865) logits: bits equal, "
+          f"Gumbel values within {ulp} ulp (tolerance 2), tokens equal {tok.tolist()}; "
+          f"{sample_ms:.3f} ms of device time for the 8 rows (uncaptured)")
+
+
+def run_ladder(asr, label: str, audio: np.ndarray) -> None:
+    """``transcribe_with_fallback`` with ``logprob_threshold`` forced high,
+    so that all five rungs run after the first pass (a loop shape captured
+    before the call): the rungs' loop shapes equal (the temperature rides in
+    the aux bundle), one capture in the call, its graph replayed by all five
+    rungs; ``_sample_seed`` advanced by 5."""
+    loop = asr.decode_loop
+    keys = []
+    loop_of = loop.loop
+
+    def recording_loop(model, key, *args):
+        keys.append(key)
+        return loop_of(model, key, *args)
+
+    loop.loop = recording_loop
+    prev = asr.logprob_threshold
+    asr.logprob_threshold = 1e9
+    seed0, stats0 = asr._sample_seed, dict(loop.stats)
+    t0 = time.perf_counter()
+    try:
+        res = asr.transcribe_with_fallback(audio)
+    finally:
+        del loop.loop
+        asr.logprob_threshold = prev
+    wall = time.perf_counter() - t0
+    graphs = {k: loop.stats[k] - stats0[k] for k in loop.stats}
+    rungs = keys[1:]
+    if (len(keys) != 6 or len(set(rungs)) != 1 or rungs[0].opts.temperature != 1.0
+            or rungs[0].beam_size != 1 or asr._sample_seed != seed0 + 5):
+        raise AssertionError(f"{label}: the ladder ran {len(keys)} decodes, rung shapes "
+                             f"{len(set(rungs))}, seed {seed0} -> {asr._sample_seed}")
+    if graphs["captures"] != 1:  # the first pass's shape is captured already
+        raise AssertionError(f"{label}: the five rungs took {graphs['captures']} captures")
+    if not res.tokens or not all(0 <= t < asr.cfg.n_vocab for t in res.tokens):
+        raise AssertionError(f"{label}: the ladder's result is empty or out of range")
+    key, step_ms = graph_step_ms(loop)
+    if key != rungs[0]:
+        raise AssertionError(f"{label}: the last loop shape is not the rungs'")
+    print(f"{label}: retry ladder (logprob_threshold forced high): the first pass (beam "
+          f"{keys[0].beam_size}) then 5 sampled rungs at 0.2..1.0 on one loop shape: "
+          f"{graphs['captures']} captures in the call (1 for the rungs), {graphs['replays']} "
+          f"replays; seed {seed0} -> {asr._sample_seed}; {wall:.2f} s on the host clock; "
+          f"{len(res.tokens)} tokens kept; kernels of a sampled step "
+          + ("not measured" if step_ms is None else f"{step_ms:.3f} ms"))
+
+
+def phase_beam(guard: FailOnLog, smi: str) -> None:
+    """Beam search, the sampled retry ladder, ``detect_language`` and
+    ``decode_full`` at full width (large-v3, random weights from seed 0,
+    bf16, 32-token caps, word timestamps on):
+
+    1. beam 5 over a 16 s window: the graph path bit-equal to the uncaptured
+       loop (tokens, score, no-speech probability, capture); host ms a token
+       and kernel ms a step beside greedy's B = 1 step; captures, pool and
+       state bytes (``beam_window_readings``);
+    2. the retry ladder (``run_ladder``), the sampler on the card against
+       the CPU's, ``detect_language`` and ``decode_full``'s logits against
+       ``decode_span``'s on one 32-token span;
+    3. the same beam readings at ``int8-kv`` (``_attend_beam_q8``);
+    4. ``int4`` beam 5 through ``transcribe``: K2's launches equal to the
+       prediction (5 rows a loop step);
+    5. beam 5 through ``StreamServer`` at ``int8-all``: N = 4 streams of 8 s
+       of ``synthetic_speech`` in 1 s feeds (``run_capacity``): aggregate
+       RTF, and the peak growth a stream under ``_row_bytes`` for 5 beams."""
+    import gc
+
+    import torch
+
+    from realtime_whisper_asr_tpu_torch.asr import TorchWhisperASR
+    from realtime_whisper_asr_tpu_torch.models.whisper.config import LANGUAGES
+    from realtime_whisper_asr_tpu_torch.ops import int4_matmul
+
+    parts: dict[str, float] = {}
+    t_part = [time.perf_counter()]
+
+    def lap(name: str) -> None:
+        now = time.perf_counter()
+        parts[name] = round(now - t_part[0], 1)
+        t_part[0] = now
+
+    def build(quantization):
+        asr = TorchWhisperASR(model_size="large-v3", dtype=torch.bfloat16, device="cuda",
+                              seed=0, quantization=quantization, beam_size=BEAM_SIZE)
+        asr.transcribe_kargs["max_total_tokens"] = 32  # random weights never emit EOT
+        return asr
+
+    window = np.concatenate([golden_audio(i) for i in range(2)])  # 16 s
+    label = "beam large-v3 bf16"
+    asr = build(None)
+    lap("init bf16")
+    read = beam_window_readings(asr, label, window)
+    lap("beam bf16")
+    run_ladder(asr, label, window)
+    check_sampler_card_equals_cpu(label)
+    lang, prob = asr.detect_language(window)
+    if lang not in LANGUAGES or not 0.0 < prob <= 1.0:
+        raise AssertionError(f"{label}: detect_language gave {lang!r}, {prob}")
+    print(f"{label}: detect_language over the 16 s window: {lang!r} with probability "
+          f"{prob:.4f} (random weights)")
+    xa = read["xa"]
+    rng = np.random.default_rng(0)
+    span = np.concatenate([read["plan"].init, rng.integers(0, asr.cfg.eot, 32 - len(read[
+        "plan"].init))])
+    tokens = torch.from_numpy(span).cuda()[None]
+    with torch.inference_mode():
+        full = asr.model.decode_full(tokens, xa)
+        stepwise, _ = asr.model.decode_span(tokens, 0, asr.model.init_cache(xa, text_ctx=32))
+    err, scale = float((full - stepwise).abs().max()), float(stepwise.abs().max())
+    if not err <= 1e-2 * scale:
+        raise AssertionError(f"{label}: decode_full's logits differ from decode_span's by {err} "
+                             f"(scale {scale})")
+    print(f"{label}: decode_full's logits on a 32-token span against decode_span's: max |Δ| "
+          f"{err:.4g} over a scale of {scale:.4g} (tolerance 1e-2 x scale at bf16)")
+    lap("ladder, sampler, language, decode_full")
+    del asr, read, xa, full, stepwise
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    label = "beam large-v3 int8-kv"
+    asr = build("int8-kv")
+    lap("init int8-kv")
+    beam_window_readings(asr, label, window)
+    lap("beam int8-kv")
+    del asr
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    label = "beam large-v3 int4"
+    asr = build("int4")
+    lap("init int4")
+    loop = asr.decode_loop
+    rows = count_k2_rows(asr.model)
+    steps = record_loop_steps(loop)
+    stats0 = dict(loop.stats)
+    # ---- the int4 beam search, with K2's launch count read around it
+    int4_matmul.int4_launches = 0
+    res = asr.transcribe(window)
+    launched = int4_matmul.int4_launches
+    # ----
+    del loop.loop, loop.run
+    graphs = {k: loop.stats[k] - stats0[k] for k in loop.stats}
+    if not res.tokens or set(steps) != {BEAM_SIZE}:
+        raise AssertionError(f"{label}: tokens {res.tokens}, steps of {sorted(set(steps))} rows")
+    predicted, formula = check_k2_launches(label, asr, rows, graphs, launched, True,
+                                           steps=list(steps))
+    print(f"{label}: K2 launches {launched} = predicted {predicted} ({formula}; each loop step "
+          f"{BEAM_SIZE} rows); {len(res.tokens)} tokens")
+    lap("beam int4")
+    del asr
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    label = "beam serving large-v3 int8-all"
+    asr = build("int8-all")
+    lap("init int8-all")
+    run = run_capacity(asr, BEAM_STREAMS, BEAM_SECONDS, label, guard)
+    print(f"{label} on {smi}: beam {BEAM_SIZE}, N={BEAM_STREAMS} streams of {BEAM_SECONDS} s in "
+          f"1 s feeds: aggregate RTF {run['rtf']:.4f} (wall {run['wall']:.2f} s; warm-up pass "
+          f"{run['warm_s']:.1f} s, {run['warm_captures']} captures in it); {run['ticks']} ticks, "
+          f"{run['new_tokens']} new tokens; batch sizes {sorted(set(run['sizes']))}; group "
+          f"dispatch p50 {np.median(run['dispatch_ms']):.1f} ms; {run['graphs']['captures']} "
+          f"captures after the warm-up; rows encoded {run['rows']} = K1 launches "
+          f"{run['launches']}; PhaseTimer split of a group: "
+          + ", ".join(f"{k} {v['mean_ms']}" for k, v in run["split"].items()))
+    check_row_memory(asr, label, smi, run, (run["peak"] - run["base"]) / BEAM_STREAMS,
+                     f"N={BEAM_STREAMS}: all the peak above the model over {BEAM_STREAMS} "
+                     f"streams, an upper bound")
+    lap("beam serving")
+    del asr
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"phase_beam seconds: {parts}")
+
+
+def check_golden_beam(asr, guard: FailOnLog) -> None:
+    """The golden test-tiny f32 ASR on the card (``phase_golden``'s): the
+    ``beam5`` row of the fixture; a batched beam search of 3 streams at
+    different states equal to each stream's own; ``transcribe_with_fallback``
+    on golden clip 0 (every rung forced) token-equal to the port's on the
+    CPU in this process; ``detect_language`` within 1e-4 of the CPU's; and
+    ``decode_full`` within 1e-4 of ``decode_span``."""
+    import torch
+
+    from realtime_whisper_asr_tpu_torch.asr import TorchWhisperASR
+    from realtime_whisper_asr_tpu_torch.models.whisper import beam as BM
+    from realtime_whisper_asr_tpu_torch.models.whisper import decode as D
+    from realtime_whisper_asr_tpu_torch.models.whisper.convert import load_flat_npz
+
+    with open(os.path.join(GOLDEN, "transcripts.json")) as f:
+        want = json.load(f)["matrix"]["beam5"]
+    audio = golden_audio(0)
+    asr.beam_size = 5
+    try:
+        res = asr.transcribe(audio)
+    finally:
+        asr.beam_size = 1
+    got = {"tokens": [int(t) for t in res.tokens], "text": "".join(s.text for s in res).strip()}
+    if got != want:
+        raise AssertionError(f"golden beam5: {got} != recorded {want}")
+    print("golden beam5 at f32: tokens and text equal the recorded row")
+
+    opts = dataclasses.replace(asr._make_opts(), beam_size=3)
+    requests = [{}, {"prefix_tokens": [50364, 40485]}, {"prompt_tokens": [1000, 2000]}]
+    with torch.inference_mode():
+        xa = torch.cat([asr._logmel_encode(torch.from_numpy(golden_audio(i)).cuda())
+                        for i in range(3)])
+    batched = BM.beam_decode_batch(asr.model, xa, opts, requests, loop=asr.decode_loop)
+    plan = D.plan_batch_aux(asr.cfg, opts, requests)
+    for i, (req, res) in enumerate(zip(requests, batched)):
+        own = D.plan_window(asr.cfg, opts, req.get("prompt_tokens"), req.get("prefix_tokens"),
+                            bucket=plan.p)
+        one = BM.beam_decode(asr.model, xa[i : i + 1], opts, own,
+                             torch.from_numpy(own.aux).cuda(), loop=asr.decode_loop)
+        if not np.array_equal(res.tokens, one.tokens):
+            raise AssertionError(f"golden batched beam row {i}: {res.tokens} != its own beam "
+                                 f"search's {one.tokens}")
+    print("golden batched beam 3 on the card: 3 streams at different states equal each "
+          "stream's own beam search")
+
+    cpu = TorchWhisperASR(cfg=asr.cfg, dtype=torch.float32, device="cpu",
+                          params=load_flat_npz(os.path.join(GOLDEN, "params.npz")))
+    cpu.transcribe_kargs["max_total_tokens"] = 24
+    ladder = {}
+    for name, one_asr in (("card", asr), ("cpu", cpu)):
+        prev, seed = one_asr.logprob_threshold, one_asr._sample_seed
+        one_asr.logprob_threshold = 1e9
+        try:
+            ladder[name] = one_asr.transcribe_with_fallback(audio).tokens
+        finally:
+            one_asr.logprob_threshold, one_asr._sample_seed = prev, seed
+    if ladder["card"] != ladder["cpu"]:
+        raise AssertionError(f"golden ladder: the card's tokens {ladder['card']} != the CPU's "
+                             f"{ladder['cpu']}")
+    langs = {name: a.detect_language(audio) for name, a in (("card", asr), ("cpu", cpu))}
+    if (langs["card"][0] != langs["cpu"][0]
+            or abs(langs["card"][1] - langs["cpu"][1]) >= 1e-4):
+        raise AssertionError(f"golden detect_language: card {langs['card']} != CPU "
+                             f"{langs['cpu']}")
+    tokens = torch.tensor([[asr.cfg.sot, 50259, 50359] + list(range(1000, 1029))]).cuda()
+    with torch.inference_mode():
+        full = asr.model.decode_full(tokens, xa[:1])
+        stepwise, _ = asr.model.decode_span(tokens, 0, asr.model.init_cache(xa[:1], text_ctx=32))
+    err = float((full - stepwise).abs().max())
+    if err > 1e-4 * float(stepwise.abs().max()) + 1e-5:
+        raise AssertionError(f"golden decode_full: logits differ from decode_span's by {err}")
+    if guard.records:
+        raise AssertionError(f"golden beam: logged errors {guard.records}")
+    print(f"golden f32 ladder (every rung forced): card tokens equal the CPU's "
+          f"({len(ladder['cpu'])} tokens); detect_language card {langs['card'][0]!r} "
+          f"{langs['card'][1]:.6f} vs CPU {langs['cpu'][1]:.6f} (tolerance 1e-4); decode_full vs "
+          f"decode_span max |Δ| {err:.3g} (tolerance 1e-4 x scale + 1e-5)")
 
 
 def _bound(nbytes: float, ops: float, peak_ops: float) -> tuple[float, str]:
@@ -2590,6 +3006,7 @@ def main() -> int:
     run("serving", phase_serving, guard, smi)
     gc.collect()
     torch.cuda.empty_cache()
+    run("beam", phase_beam, guard, smi)
     chain_launches = run("microbench", phase_microbench)
     src = "realtime_whisper_asr_tpu_torch/csrc/"
     entries = []

@@ -1,6 +1,9 @@
 """Whisper ASR backend on PyTorch/CUDA: the online protocol's ASR side.
 
-Port of the single-stream greedy path of ``realtime_whisper_asr_tpu/asr.py``.
+Port of ``realtime_whisper_asr_tpu/asr.py``: greedy or beam decoding
+(``beam_size``), whisper's quality-retry temperature ladder
+(``temperature_fallback``, ``transcribe_with_fallback``) and
+``detect_language``.
 The protocol the online processor consumes (whisper_streaming's backend
 contract):
 
@@ -13,9 +16,9 @@ Each window (tick) is: one host→device copy, from pinned memory, of the
 window's new audio and the decode's aux bundle, the audio applied to the
 stream's device audio ring (grow, shift or full: see ``_plan_upload``) →
 log-mel (the hand-written CUDA kernel) of the ring's first window bucket →
-encoder → greedy decode with cross-attention capture (on the card its loop
-replays CUDA graphs, ``decode.DecodeLoop``) → one device→host copy of the
-packed result → segments with DTW word timestamps.
+encoder → greedy (or beam) decode with cross-attention capture (on the
+card its loop replays CUDA graphs, ``decode.DecodeLoop``) → one device→host
+copy of the packed result → segments with DTW word timestamps.
 
 A window is ``transcribe_dispatch`` (everything up to the start of the
 result's copy) then ``transcribe_finalize`` (the wait for that copy and the
@@ -26,7 +29,8 @@ between them.
 ``transcribe_batch`` (``transcribe_batch_dispatch`` / ``_finalize``) is the
 multi-stream tick the server (``serving.py``) runs: B streams' new audio
 and aux rows in one copy, each applied to its own ring, log-mel once per
-row, one encode of B rows and one batched decode (``decode.greedy_decode_batch``).
+row, one encode of B rows and one batched decode (``decode.greedy_decode_batch``,
+or ``beam.beam_decode_batch``).
 """
 
 from __future__ import annotations
@@ -35,6 +39,7 @@ import dataclasses
 import json
 import logging
 import os
+import zlib
 from typing import Optional, Sequence
 
 import numpy as np
@@ -42,6 +47,7 @@ import torch
 from numpy.lib.stride_tricks import sliding_window_view
 
 from realtime_whisper_asr_tpu_torch.device import resolve_device
+from realtime_whisper_asr_tpu_torch.models.whisper import beam as BM
 from realtime_whisper_asr_tpu_torch.models.whisper import decode as D
 from realtime_whisper_asr_tpu_torch.models.whisper import quant as Q
 from realtime_whisper_asr_tpu_torch.models.whisper import timestamps as TS
@@ -49,7 +55,11 @@ from realtime_whisper_asr_tpu_torch.models.whisper.checkpoint import (
     is_native_checkpoint,
     load_checkpoint,
 )
-from realtime_whisper_asr_tpu_torch.models.whisper.config import WhisperConfig, get_config
+from realtime_whisper_asr_tpu_torch.models.whisper.config import (
+    LANGUAGES,
+    WhisperConfig,
+    get_config,
+)
 from realtime_whisper_asr_tpu_torch.models.whisper.load import load_checkpoint_dir
 from realtime_whisper_asr_tpu_torch.models.whisper.model import Whisper, encoder_flops, init_params
 from realtime_whisper_asr_tpu_torch.models.whisper.tokenizer import Tokenizer, get_tokenizer
@@ -153,6 +163,7 @@ class TorchWhisperASR:
         device="cuda",
         quantization: Optional[str] = None,
         checkpoint_dir: Optional[str] = None,
+        beam_size: int = 1,
     ):
         """``params``: a state dict of ``models.whisper.model.Whisper``
         (``convert.params_from_jax`` / ``convert.load_flat_npz``);
@@ -172,7 +183,11 @@ class TorchWhisperASR:
         checkpoint (``tools/convert_checkpoint.py``) is never weakened: a
         requested tier that ranks below the artifact's (``quant.RANK``)
         runs, and reports, the artifact's tier; with no tier requested the
-        artifact's runs."""
+        artifact's runs.
+
+        ``beam_size`` > 1 decodes every window by beam search (``beam.py``);
+        ``transcribe_kargs["beam_size"]`` overrides it. ``seed`` also seeds
+        the quality-retry ladder's sampling (``_sample_seed``)."""
         Q.tier_layout(quantization)  # raises on an unknown tier
         quantization = quantization if quantization not in ("", "none") else None
         if checkpoint_dir is not None:
@@ -216,8 +231,23 @@ class TorchWhisperASR:
         self.alignment_heads = self._load_alignment_heads(checkpoint_dir)
         self.original_language = language if self.cfg.is_multilingual else None
         self.task = "transcribe"
+        self.beam_size = beam_size
         self.word_timestamps = word_timestamps
         self.transcribe_kargs: dict = {}
+        #: the seed of the next sampled decode; each rung of the quality-retry
+        #: ladder advances it by one first
+        self._sample_seed = seed
+        #: whisper's quality-retry ladder: a window whose transcript compresses
+        #: too well (a repetition loop) or whose mean logprob is too low is
+        #: decoded again, sampled at temperatures 0.2, 0.4 … 1.0, until one
+        #: passes. Off by default (streaming stays deterministic);
+        #: ``transcribe_with_fallback`` turns it on for one call
+        self.temperature_fallback = False
+        self.compression_ratio_threshold = 2.4
+        self.logprob_threshold = -1.0
+        #: input longer than 30 s is windowed, each window's text the next
+        #: window's prompt (faster-whisper's condition_on_previous_text)
+        self.condition_on_previous_text = True
         #: anti-hallucination guard: cap the transcript per window at
         #: ``8 + rate × window_seconds`` tokens (real speech lands at ~3-4
         #: tokens/s), so a repetition loop on a short window stops early;
@@ -468,12 +498,14 @@ class TorchWhisperASR:
         return max(1, min(max_new_cap, total - n_prefix))
 
     def _make_opts(self) -> D.DecodeOptions:
+        kargs = dict(self.transcribe_kargs)
         return D.DecodeOptions(
             task=self.task,
             language=self.original_language,
+            beam_size=kargs.pop("beam_size", self.beam_size),
             timestamps=True,
             word_timestamps=self.word_timestamps,
-            **self.transcribe_kargs,
+            **kargs,
         )
 
     # --------------------------------------------------------------- protocol
@@ -494,7 +526,7 @@ class TorchWhisperASR:
         tail beyond that prefix) are verified in the same pass and accepted
         where the model agrees (lossless). Input longer than 30 s is windowed
         sequentially, each window's decoded text riding as the next window's
-        prompt (condition_on_previous_text).
+        prompt while ``condition_on_previous_text`` is set.
         """
         audio = np.asarray(audio, np.float32)
         if len(audio) <= WINDOW_SAMPLES:
@@ -505,14 +537,16 @@ class TorchWhisperASR:
         while offset < len(audio):
             window = audio[offset : offset + WINDOW_SAMPLES]
             segs = self._transcribe_window(
-                window, init_prompt, offset / SAMPLING_RATE, prompt_ids=carry
+                window, init_prompt, offset / SAMPLING_RATE,
+                prompt_ids=carry if self.condition_on_previous_text else None,
             )
             segments.extend(segs)
-            # segs.tokens is the sampled region only, so this never
-            # re-appends the carried context; < eot drops timestamp and
-            # special tokens; keep the newest n_text_ctx//2 - 1
-            carry.extend(t for t in segs.tokens if t < self.cfg.eot)
-            del carry[: max(0, len(carry) - (self.cfg.n_text_ctx // 2 - 1))]
+            if self.condition_on_previous_text:
+                # segs.tokens is the sampled region only, so this never
+                # re-appends the carried context; < eot drops timestamp and
+                # special tokens; keep the newest n_text_ctx//2 - 1
+                carry.extend(t for t in segs.tokens if t < self.cfg.eot)
+                del carry[: max(0, len(carry) - (self.cfg.n_text_ctx // 2 - 1))]
             if segs and segs[-1].end * SAMPLING_RATE > offset + 1:
                 offset = int(segs[-1].end * SAMPLING_RATE)
             else:
@@ -540,22 +574,22 @@ class TorchWhisperASR:
         the decode up to the start of its result's copy; returns a handle
         for ``transcribe_batch_finalize``. B is padded to a power of two by
         repeating the last item, so group sizes add few loop shapes; the pad
-        rows are dropped in the finalize. Beam search raises
-        ``NotImplementedError`` (ROADMAP queue 1 item 12)."""
-        if self.transcribe_kargs.get("beam_size", 1) > 1:
-            raise NotImplementedError("batched beam search is not ported yet "
-                                      "(ROADMAP queue 1 item 12)")
+        rows are dropped in the finalize. With ``beam_size`` > 1 the decode
+        is B streams' beam searches in one loop, each stream stopping on its
+        own (``beam.beam_decode_batch_dispatch``); drafts are dropped."""
         n_real = len(items)
         padded = list(items)
         while len(padded) & (len(padded) - 1):
             padded.append(padded[-1])
         opts = self._make_opts()
         keys, audios, requests = [], [], []
+        beam = opts.beam_size > 1
         for it in padded:
             prompt = it.get("init_prompt") or ""
             requests.append({"prompt_tokens": self.tokenizer.encode(prompt) if prompt else None,
                              "prefix_tokens": it.get("prefix_ids"),
-                             "draft_tokens": it.get("draft_ids")})
+                             "draft_tokens": None if beam else it.get("draft_ids"),
+                             "seed": self._sample_seed})
             audios.append(np.asarray(it["audio"], np.float32))
             keys.append(it["key"])
         plan = D.plan_batch_aux(self.cfg, opts, requests)
@@ -573,16 +607,19 @@ class TorchWhisperASR:
         if pt is not None:
             sync_device(self.device)
             pt.lap("encode")
-        handle = D.greedy_decode_batch_dispatch(
+        dispatch = BM.beam_decode_batch_dispatch if beam else D.greedy_decode_batch_dispatch
+        handle = dispatch(
             self.model, xa, opts, plan, aux_dev, extra_suppress=self._extra_suppress,
             alignment_heads=self.alignment_heads, loop=self.decode_loop, phase_timer=pt)
-        return {"handle": handle, "items": items, "requests": requests, "n_real": n_real}
+        return {"handle": handle, "items": items, "requests": requests, "n_real": n_real,
+                "beam": beam}
 
     def transcribe_batch_finalize(self, st: dict) -> list[TranscriptionResult]:
         """The second half of ``transcribe_batch``: wait for the result's
         copy, then parse each real row's segments and tokens."""
         items, requests, n_real = st["items"], st["requests"], st["n_real"]
-        results = D.greedy_decode_batch_finalize(st["handle"])
+        finalize = BM.beam_decode_batch_finalize if st["beam"] else D.greedy_decode_batch_finalize
+        results = finalize(st["handle"])
         out = []
         for it, res, req in zip(items[:n_real], results[:n_real], requests[:n_real]):
             n_frames = min(len(it["audio"]) // (2 * 160), self.cfg.n_audio_ctx)
@@ -662,10 +699,14 @@ class TorchWhisperASR:
     ) -> dict:
         cfg = self.cfg
         opts = self._make_opts()
+        beam = opts.beam_size > 1
         if prompt_ids is None:
             prompt_ids = self.tokenizer.encode(init_prompt) if init_prompt else None
+        if beam:  # a beam search verifies no draft, host or device
+            draft_ids = device_draft = None
         plan = D.plan_window(cfg, opts, prompt_ids, prefix_ids, draft_ids,
-                             force_draft_bucket=device_draft is not None)
+                             force_draft_bucket=device_draft is not None,
+                             seed=self._sample_seed)
         cap_slot = D.AUX_TOK + 4  # the exact cap the plan put in the aux bundle
         plan.aux[cap_slot] = self._density_cap(int(plan.aux[cap_slot]), plan.n_prefix,
                                                len(audio))
@@ -685,17 +726,24 @@ class TorchWhisperASR:
         if pt is not None:
             sync_device(self.device)
             pt.lap("encode")
-        handle = D.greedy_decode_dispatch(
+        dispatch = BM.beam_decode_dispatch if beam else D.greedy_decode_dispatch
+        handle = dispatch(
             self.model, xa, opts, plan, aux_dev,
             extra_suppress=self._extra_suppress, alignment_heads=self.alignment_heads,
             loop=self.decode_loop, phase_timer=pt,
         )
-        return {"decode_handle": handle, "prefix_ids": prefix_ids, "audio_len": len(audio),
+        return {"decode_handle": handle, "beam": beam, "xa": xa, "opts": opts,
+                "prompt_ids": prompt_ids, "prefix_ids": prefix_ids, "audio_len": len(audio),
                 "time_offset": time_offset}
 
     def _transcribe_window_finalize(self, st: dict) -> TranscriptionResult:
         cfg = self.cfg
-        result = D.greedy_decode_finalize(st["decode_handle"])
+        finalize = BM.beam_decode_finalize if st["beam"] else D.greedy_decode_finalize
+        result = finalize(st["decode_handle"])
+        opts = st["opts"]
+        if self.temperature_fallback and opts.temperature == 0.0:
+            result = self._quality_retry(result, st["xa"], opts, st["prompt_ids"],
+                                         st["prefix_ids"])
         n_frames = min(st["audio_len"] // (2 * 160), cfg.n_audio_ctx)
         self.counters["ticks"] += 1
         self.counters["new_tokens"] += int(result.lengths[0]) - len(st["prefix_ids"] or [])
@@ -775,6 +823,71 @@ class TorchWhisperASR:
                 )
             )
         return segments
+
+    @torch.inference_mode()
+    def _quality_retry(self, result: D.DecodeResult, xa: torch.Tensor, opts: D.DecodeOptions,
+                       prompt_ids, prefix_ids) -> D.DecodeResult:
+        """Whisper's quality-retry ladder, the JAX package's
+        ``_quality_retry``: a result whose text compresses above
+        ``compression_ratio_threshold`` (zlib; a repetition loop) or whose
+        mean logprob is below ``logprob_threshold`` is decoded again from the
+        same encoder output, greedy with sampling at 0.2, 0.4, 0.6, 0.8 and
+        1.0, ``_sample_seed`` advanced by one before each rung; the first
+        rung that passes is kept, else the last. The rungs share one loop
+        shape (the temperature rides in the aux bundle), so on the card one
+        captured graph serves them all."""
+        def bad(res: D.DecodeResult) -> bool:
+            ids = res.tokens[0][: res.lengths[0]].tolist()
+            text = self.tokenizer.decode(ids).encode("utf-8")
+            if len(text) > 16:
+                ratio = len(text) / max(len(zlib.compress(text)), 1)
+                if ratio > self.compression_ratio_threshold:
+                    return True
+            return float(res.avg_logprob[0]) < self.logprob_threshold
+
+        if not bad(result):
+            return result
+        for t in (0.2, 0.4, 0.6, 0.8, 1.0):
+            self._sample_seed += 1
+            retry_opts = dataclasses.replace(opts, temperature=t)
+            plan = D.plan_window(self.cfg, retry_opts, prompt_ids, prefix_ids,
+                                 seed=self._sample_seed)
+            retry = D.greedy_decode(
+                self.model, xa, retry_opts, plan, torch.from_numpy(plan.aux).to(xa.device),
+                extra_suppress=self._extra_suppress, alignment_heads=self.alignment_heads,
+                loop=self.decode_loop)
+            if not bad(retry):
+                return retry
+            result = retry
+        return result
+
+    def transcribe_with_fallback(self, audio: np.ndarray, init_prompt: str = ""):
+        """Offline-quality path: ``transcribe`` with the quality-retry ladder on."""
+        prev = self.temperature_fallback
+        self.temperature_fallback = True
+        try:
+            return self.transcribe(audio, init_prompt)
+        finally:
+            self.temperature_fallback = prev
+
+    @torch.inference_mode()
+    def detect_language(self, audio: np.ndarray) -> tuple[str, float]:
+        """(language, probability) from one decoder step at SOT over the
+        window (≤ 30 s, padded to its bucket), normalized over the language
+        tokens only (whisper's ``detect_language``); ("en", 1.0) for an
+        English-only model."""
+        cfg = self.cfg
+        if not cfg.is_multilingual:
+            return "en", 1.0
+        window = torch.from_numpy(self._pad_window(np.asarray(audio, np.float32)))
+        xa = self._logmel_encode(window.to(self.device))
+        logits, _ = self.model.decode_step(
+            torch.tensor([cfg.sot], device=self.device),
+            torch.zeros((), dtype=torch.long, device=self.device), self.model.init_cache(xa))
+        lang = logits[0, cfg.sot + 1 : cfg.sot + 1 + cfg.num_languages]
+        probs = torch.softmax(lang, dim=-1).cpu().numpy()
+        best = int(np.argmax(probs))
+        return LANGUAGES[best], float(probs[best])
 
     def ts_words(self, segments: Sequence[Segment]) -> list[tuple[float, float, str]]:
         out = []

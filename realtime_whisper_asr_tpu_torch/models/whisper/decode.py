@@ -1,12 +1,15 @@
-"""Greedy decoding under Whisper's logit rules, of one window or of B streams'.
+"""Greedy and sampled decoding under Whisper's logit rules, of one window or
+of B streams'; the loop that beam search (``beam.py``) runs on too.
 
 Port of the greedy path of ``realtime_whisper_asr_tpu/models/whisper/decode.py``:
 one prefill pass (``decode_span``) over prompt + SOT sequence + forced prefix
 + self-speculative draft, a lossless verify of the draft from that pass, then
 one ``decode_step`` per new token with the same selection function
 (``_select_next``: suppress lists, blank/EOT rule, timestamp grammar with
-monotonicity and the timestamp-probability rule, argmax). Per-row boundaries
-and caps ride in the same aux bundle as the JAX package's (``pack_aux``,
+monotonicity and the timestamp-probability rule, then argmax, or with
+``temperature > 0`` the JAX package's seeded Gumbel-max sample,
+``ops/threefry.py``). Per-row boundaries, caps, seeds and temperatures ride
+in the same aux bundle as the JAX package's (``pack_aux``,
 planned by ``plan_window``), and the result comes back as the same packed
 buffer — tokens, sum logprob, no-speech probability and the uint8-quantized
 cross-attention capture — in one device→host copy.
@@ -17,6 +20,10 @@ the position is a device tensor, and a step past the loop's end is a no-op),
 and ``DecodeLoop`` runs it K steps at a time between two host checks of the
 end: on the card as a CUDA graph of K steps, captured once per loop shape
 and replayed; on the CPU uncaptured, the plain version of the same loop.
+The temperature's value rides in the aux bundle and the loop shape keeps only
+whether it samples, so the quality-retry ladder's rungs replay one graph. A
+beam search's loop shape (``LoopKey.beam_size``) runs ``beam._beam_step`` on
+its own state, in the same ``DecodeLoop`` and graph pool.
 The prefill reads nothing back, so a window costs at most ⌈(max_new − 1)/K⌉
 host syncs plus one wait for the copy of its result.
 
@@ -48,7 +55,7 @@ import torch
 
 from realtime_whisper_asr_tpu_torch.models.whisper.config import WhisperConfig
 from realtime_whisper_asr_tpu_torch.models.whisper.model import DecoderCache, Whisper
-from realtime_whisper_asr_tpu_torch.ops import int4_matmul
+from realtime_whisper_asr_tpu_torch.ops import int4_matmul, threefry
 
 #: decode steps in one CUDA graph, and between two host checks of the loop's
 #: end. A check idles the card ~0.1 ms, while the steps of the last replay
@@ -66,13 +73,16 @@ class DecodeOptions:
 
     task: str = "transcribe"
     language: Optional[str] = "en"
+    beam_size: int = 1
     max_new_tokens: int = 224
     max_total_tokens: Optional[int] = None  # cap on prefix+generated transcript length
+    temperature: float = 0.0  # > 0 samples; the value rides per row in the aux bundle
     timestamps: bool = True
     max_initial_timestamp: float = 1.0
     suppress_blank: bool = True
     blank_id: int = 220  # GPT2 " " token
     word_timestamps: bool = False
+    length_penalty: float = 1.0  # beam search's pick: score / length ** penalty
 
 
 @dataclasses.dataclass
@@ -99,7 +109,6 @@ def _bucket(n: int) -> int:
 # tokens and every per-row scalar):
 #   [tokens_f32(AUX_TOK) | n_prefix | sot_index | last_ts | sampling_seed |
 #    max_new_cap | n_draft | draft_f32(DRAFT_MAX) | temperature]
-# The greedy path leaves the seed and temperature slots at 0.
 AUX_TOK = 384
 DRAFT_MAX = 16
 AUX_TEMP = AUX_TOK + 6 + DRAFT_MAX
@@ -186,19 +195,23 @@ def pack_aux(
     n_prefix: int,
     sot_index: int,
     last_ts: int,
+    seed: int = 0,
     max_new_cap: int = 10**6,
     draft: Optional[np.ndarray] = None,
+    temperature: float = 0.0,
 ) -> np.ndarray:
     aux = np.zeros(AUX_LEN, np.float32)
     aux[: len(init)] = init.astype(np.float32)
     aux[AUX_TOK] = n_prefix
     aux[AUX_TOK + 1] = sot_index
     aux[AUX_TOK + 2] = last_ts
+    aux[AUX_TOK + 3] = seed
     aux[AUX_TOK + 4] = max_new_cap
     if draft is not None and len(draft):
         d = np.asarray(draft, np.float32)[:DRAFT_MAX]
         aux[AUX_TOK + 5] = len(d)
         aux[AUX_TOK + 6 : AUX_TOK + 6 + len(d)] = d
+    aux[AUX_TEMP] = temperature
     return aux
 
 
@@ -275,10 +288,10 @@ def _amask_dev(cfg: WhisperConfig, heads_key: Optional[bytes], device: torch.dev
     return torch.from_numpy(np.ascontiguousarray(amask, np.float32)).to(device)
 
 
-def _select_next(cfg, opts, logits, tokens, pos, last_ts, n_prefix, p, sup_mask):
-    """All Whisper logit rules + argmax at per-row positions ``pos`` (R,).
-    logits (R, V) f32; tokens (R, T) the history; last_ts, n_prefix (R,).
-    Returns (next token (R,), its logprob (R,))."""
+def _filter_logits(cfg, opts, logits, tokens, pos, last_ts, n_prefix, p, sup_mask):
+    """All Whisper logit rules at per-row positions ``pos`` (R,): logits
+    (R, V) f32 -> the filtered logits, -inf where a rule forbids a token.
+    tokens (R, T) the history; last_ts, n_prefix (R,)."""
     neg = float("-inf")
     vocab_ids = torch.arange(cfg.n_vocab, device=logits.device)
     ts0 = cfg.timestamp_begin
@@ -314,7 +327,19 @@ def _select_next(cfg, opts, logits, tokens, pos, last_ts, n_prefix, p, sup_mask)
         flogits = flogits.masked_fill((ts_lp > max_text_lp)[:, None] & ~is_ts, neg)
     else:
         flogits = flogits.masked_fill(is_ts, neg)
-    nxt = flogits.argmax(dim=-1)  # first maximum, as jnp.argmax
+    return flogits
+
+
+def _select_next(cfg, opts, logits, tokens, pos, last_ts, n_prefix, p, sup_mask, seed, temp):
+    """``_filter_logits``, then the next token: argmax, or with
+    ``opts.temperature > 0`` the seeded Gumbel-max sample of each row's
+    ``seed`` and temperature ``temp`` (R,) at its position
+    (``threefry.sample``). Returns (next token (R,), its logprob (R,))."""
+    flogits = _filter_logits(cfg, opts, logits, tokens, pos, last_ts, n_prefix, p, sup_mask)
+    if opts.temperature > 0:
+        nxt = threefry.sample(flogits, seed, pos, temp)
+    else:
+        nxt = flogits.argmax(dim=-1)  # first maximum, as jnp.argmax
     lp = torch.log_softmax(flogits, dim=-1).gather(1, nxt[:, None])[:, 0]
     return nxt, lp
 
@@ -335,6 +360,12 @@ class LoopState:
     total: torch.Tensor  # (B,) long: each row's exact cap, ≤ p + max_new
     max_total: torch.Tensor  # () long: the loop's end
     n_prefix: torch.Tensor  # (B,) long
+    seed: torch.Tensor  # (B,) long: each row's sampling seed
+    temp: torch.Tensor  # (B,) f32: each row's temperature (read only when sampling)
+
+    def ended(self) -> torch.Tensor:
+        """() bool on the device: every row finished, or ``pos`` at the end."""
+        return self.finished.all() | (self.pos >= self.max_total)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -342,9 +373,10 @@ class LoopKey:
     """What a captured loop bakes in: the model (and so its tier, dtype and
     cache kind: ``int8-kv``'s int8 rows and scales are another state),
     the window bucket (audio_ctx), the prompt length p, the loop bound
-    max_new, the self cache length, the draft slots, batch rows, and what
-    the step reads from outside its state (the selection options, the
-    suppressed ids, the alignment heads when capturing)."""
+    max_new, the self cache length, the draft slots, batch rows (streams, for
+    a beam search), and what the step reads from outside its state (the
+    selection options, with the temperature collapsed to 0 or 1 and the beam
+    size, the suppressed ids, the alignment heads when capturing)."""
 
     model_id: int
     audio_ctx: int
@@ -356,6 +388,10 @@ class LoopKey:
     opts: DecodeOptions
     extra_suppress: tuple[int, ...]
     heads_key: Optional[bytes]
+
+    @property
+    def beam_size(self) -> int:
+        return self.opts.beam_size
 
 
 def _new_state(model: Whisper, key: LoopKey, dtype, device) -> LoopState:
@@ -371,6 +407,7 @@ def _new_state(model: Whisper, key: LoopKey, dtype, device) -> LoopState:
                if key.opts.word_timestamps else None),
         finished=zeros(b, dtype=torch.bool), sum_lp=zeros(b, dtype=torch.float32),
         last_ts=zeros(b), pos=zeros(), total=zeros(b), max_total=zeros(), n_prefix=zeros(b),
+        seed=zeros(b), temp=zeros(b, dtype=torch.float32),
     )
 
 
@@ -417,7 +454,7 @@ def _step(model: Whisper, opts: DecodeOptions, st: LoopState, sup_mask: torch.Te
     for buf, kept in zip(bufs, old):  # undo the write where not go
         buf.index_copy_(3, prev, torch.where(go, buf.index_select(3, prev), kept))
     nxt, lp = _select_next(cfg, opts, logits, st.tokens, at.expand(st.tokens.shape[0]),
-                           st.last_ts, st.n_prefix, p, sup_mask)
+                           st.last_ts, st.n_prefix, p, sup_mask, st.seed, st.temp)
     if st.xattn is not None:
         _keep(go, xw[:, None], st.xattn, 1, (at - p).clamp(0, st.xattn.shape[1] - 1).view(1))
     _advance(cfg, st, at, go, nxt, lp)
@@ -443,7 +480,9 @@ def _prefill(model: Whisper, opts: DecodeOptions, xa: torch.Tensor, aux: torch.T
     cfg = model.cfg
     b, dev = xa.shape[0], xa.device
     max_new = st.tokens.shape[1] - p
-    aux = aux.long()  # every slot read here holds an integer
+    st.temp.copy_(aux[:, AUX_TEMP])
+    aux = aux.long()  # every other slot read here holds an integer
+    st.seed.copy_(aux[:, AUX_TOK + 3])
     initial_tokens = aux[:, :p]
     n_prefix = aux[:, AUX_TOK]
     sot_index = aux[:, AUX_TOK + 1]
@@ -487,7 +526,8 @@ def _prefill(model: Whisper, opts: DecodeOptions, xa: torch.Tensor, aux: torch.T
     lg = pre_logits[:, p - 1 : p + draft_max].transpose(0, 1)  # (k, B, V)
     choices, lps = _select_next(cfg, opts, lg.reshape(k * b, -1), st.tokens.repeat(k, 1),
                                 positions.repeat_interleave(b), lts_all.reshape(-1),
-                                n_prefix.repeat(k), p, sup_mask)
+                                n_prefix.repeat(k), p, sup_mask, st.seed.repeat(k),
+                                st.temp.repeat(k))
     choices, lps = choices.view(k, b), lps.view(k, b)
 
     if draft_max:
@@ -539,15 +579,31 @@ class _Loop:
     reads: tuple  # what the step reads besides its state, kept alive with a graph
 
 
-def _state_bytes(st: LoopState) -> int:
+def _state_bytes(st) -> int:
+    """The bytes of a loop state's tensors (greedy or beam), cache included."""
     tensors = [getattr(st.cache, f.name) for f in dataclasses.fields(st.cache)]
     tensors += [getattr(st, f.name) for f in dataclasses.fields(st)][1:]
     return sum(t.numel() * t.element_size() for t in tensors if t is not None)
 
 
+def _loop_parts(model: Whisper, key: LoopKey, dtype, device, sup_mask: torch.Tensor,
+                amask: Optional[torch.Tensor]):
+    """(new state, its step) of ``key``'s loop: the greedy ``_step`` on a
+    ``LoopState``, or beam search's ``beam._beam_step`` on a ``BeamState``."""
+    if key.beam_size > 1:
+        from realtime_whisper_asr_tpu_torch.models.whisper import beam
+
+        st = beam.new_state(model, key, dtype, device)
+        return st, functools.partial(beam._beam_step, model, key.opts, st, sup_mask, amask,
+                                     key.p)
+    st = _new_state(model, key, dtype, device)
+    return st, functools.partial(_step, model, key.opts, st, sup_mask, amask, key.p)
+
+
 class DecodeLoop:
-    """Runs windows' decode loops: the step (``_step``) K times between two
-    host checks of the loop's end, so one window's loop costs at most
+    """Runs windows' decode loops: the step (``_step``, or a beam search's
+    ``beam._beam_step``) K times between two host checks of the loop's end,
+    so one window's loop costs at most
     ⌈(max_new − 1)/K⌉ host syncs (the prefill none).
 
     On the card the K steps are one CUDA graph, captured once per loop shape
@@ -585,8 +641,7 @@ class DecodeLoop:
         """The loop of ``key``: on the card (``captured``) its graph, captured
         at first use; otherwise new state and K uncaptured steps."""
         if not captured:
-            st = _new_state(model, key, dtype, device)
-            step = functools.partial(_step, model, key.opts, st, sup_mask, amask, key.p)
+            st, step = _loop_parts(model, key, dtype, device, sup_mask, amask)
 
             def run_k():
                 for _ in range(self.k):
@@ -607,8 +662,7 @@ class DecodeLoop:
         """K steps captured in one CUDA graph on new state buffers. A capture
         that fails raises; nothing falls back to the uncaptured loop."""
         t0 = time.perf_counter()
-        st = _new_state(model, key, dtype, device)
-        step = functools.partial(_step, model, key.opts, st, sup_mask, amask, key.p)
+        st, step = _loop_parts(model, key, dtype, device, sup_mask, amask)
         st.finished.fill_(True)  # the warm-up step is then a no-op on every buffer
         if self._pool is None:
             self._pool = torch.cuda.graph_pool_handle()
@@ -648,7 +702,7 @@ class DecodeLoop:
         st = loop.state
         while steps_max > 0:
             self.stats["checks"] += 1
-            if bool(st.finished.all() | (st.pos >= st.max_total)):  # one sync per K steps
+            if bool(st.ended()):  # one sync per K steps
                 return
             loop.run_k()
             steps_max -= self.k
@@ -662,22 +716,37 @@ def _decode_window(model: Whisper, opts: DecodeOptions, xa: torch.Tensor, aux: t
     """The decode of one planned window, or of B streams' windows at one
     bucket (prefill, then the loop: captured on the card, uncaptured where
     ``captured`` is false), returning the packed result (flat f32) on xa's
-    device. ``aux`` (B, AUX_LEN) on xa's device."""
+    device. ``aux`` (B, AUX_LEN) on xa's device. A beam search
+    (``opts.beam_size`` > 1) runs ``beam.py``'s prefill and pack around the
+    same loop, and ignores any draft."""
     cfg = model.cfg
     p = plan.p
+    # the loop shape keeps only whether it samples: the value is in aux
+    opts = dataclasses.replace(opts, temperature=1.0 if opts.temperature > 0 else 0.0)
+    beam_size = opts.beam_size
     heads_key = (None if alignment_heads is None
                  else np.ascontiguousarray(alignment_heads, np.float32).tobytes())
     sup_mask = _sup_mask_dev(cfg, tuple(extra_suppress), xa.device)
     amask = _amask_dev(cfg, heads_key, xa.device) if opts.word_timestamps else None
+    draft_max = 0 if beam_size > 1 else plan.draft_max
     key = LoopKey(id(model), int(xa.shape[1]), p, plan.max_new,
-                  min(cfg.n_text_ctx, _round_up(p + plan.max_new, 128)), plan.draft_max,
+                  min(cfg.n_text_ctx, _round_up(p + plan.max_new, 128)), draft_max,
                   int(xa.shape[0]), opts, tuple(extra_suppress), heads_key)
     run = loop.loop(model, key, xa.dtype, xa.device, sup_mask, amask, captured)
-    pre_xattn, no_speech_prob = _prefill(model, opts, xa, aux, sup_mask, amask, run.state, p,
-                                         plan.draft_max)
     # the host's bound on the loop's steps: the first token came from the
     # prefill, and no row goes past its cap (the plan's, ≤ max_new)
-    loop.run(run, min(plan.cap, plan.max_new) - 1)
+    steps_max = min(plan.cap, plan.max_new) - 1
+    if beam_size > 1:
+        from realtime_whisper_asr_tpu_torch.models.whisper import beam
+
+        pre_xattn, no_speech_prob = beam._prefill(model, opts, xa, aux, sup_mask, amask,
+                                                  run.state, p)
+        loop.run(run, steps_max)
+        return beam._pack(run.state, pre_xattn, no_speech_prob, p, cfg.eot,
+                          opts.length_penalty)
+    pre_xattn, no_speech_prob = _prefill(model, opts, xa, aux, sup_mask, amask, run.state, p,
+                                         draft_max)
+    loop.run(run, steps_max)
     return _pack(run.state, pre_xattn, no_speech_prob, p)
 
 
@@ -714,13 +783,15 @@ def plan_window(
     draft_tokens: Optional[list[int]] = None,
     force_draft_bucket: bool = False,
     bucket: Optional[int] = None,
+    seed: int = 0,
 ) -> WindowPlan:
     """Initial tokens, budget and aux bundle of one window. ``draft_tokens``
     (the previous hypothesis's tail beyond the forced prefix) enables the
     lossless self-speculative fast path. ``force_draft_bucket``: the
     DRAFT_MAX draft span with no host draft, for a caller that writes a
     device-side draft into the uploaded aux (``patch_aux_device_draft``).
-    ``bucket``: the prefill length (``build_initial_tokens``)."""
+    ``bucket``: the prefill length (``build_initial_tokens``). ``seed`` and
+    ``opts.temperature`` go into the aux bundle for a sampled decode."""
     init, sot_index, n_prefix = build_initial_tokens(cfg, opts, prompt_tokens, prefix_tokens,
                                                      bucket)
     ts_in_prefix = [int(t) for t in init[len(init) - n_prefix :] if t >= cfg.timestamp_begin]
@@ -728,8 +799,9 @@ def plan_window(
     if force_draft_bucket:
         draft_tokens = None
     aux = pack_aux(
-        init, n_prefix, sot_index, ts_in_prefix[-1] if ts_in_prefix else -1,
+        init, n_prefix, sot_index, ts_in_prefix[-1] if ts_in_prefix else -1, seed=seed,
         max_new_cap=max_new_cap, draft=np.asarray(draft_tokens or [], np.int32),
+        temperature=opts.temperature,
     )
     draft_max = DRAFT_MAX if (draft_tokens or force_draft_bucket) else 0
     return WindowPlan(init, n_prefix, max_new, draft_max, aux)
@@ -773,12 +845,13 @@ class BatchPlan:
 def plan_batch_aux(cfg: WhisperConfig, opts: DecodeOptions, requests: list[dict]) -> BatchPlan:
     """The host half of a batched decode: each request's window plan at one
     common prefill bucket (the largest of the rows' own). A request is
-    ``{"prompt_tokens", "prefix_tokens", "draft_tokens"}``, each optional;
-    the rows may be at different streaming states."""
+    ``{"prompt_tokens", "prefix_tokens", "draft_tokens", "seed"}``, each
+    optional; the rows may be at different streaming states."""
     p = _bucket(max(build_initial_tokens(cfg, opts, r.get("prompt_tokens"),
                                          r.get("prefix_tokens"))[0].shape[0] for r in requests))
     rows = [plan_window(cfg, opts, r.get("prompt_tokens"), r.get("prefix_tokens"),
-                        r.get("draft_tokens"), bucket=p) for r in requests]
+                        r.get("draft_tokens"), bucket=p, seed=int(r.get("seed", 0)))
+            for r in requests]
     return BatchPlan(rows, p, max(row.max_new for row in rows))
 
 
@@ -845,8 +918,9 @@ def greedy_decode_dispatch(
     ``DecodeLoop`` when None: pass the same one to every window of a model
     to reuse its graphs), on the CPU uncaptured."""
     b = xa.shape[0]
-    return _dispatch(model, xa, opts, plan, aux.reshape(-1, AUX_LEN).expand(b, AUX_LEN),
-                     extra_suppress, alignment_heads, loop, phase_timer)
+    return _dispatch(model, xa, dataclasses.replace(opts, beam_size=1), plan,
+                     aux.reshape(-1, AUX_LEN).expand(b, AUX_LEN), extra_suppress,
+                     alignment_heads, loop, phase_timer)
 
 
 def _dispatch(model, xa, opts, plan, aux, extra_suppress, alignment_heads, loop,
@@ -937,8 +1011,8 @@ def greedy_decode_batch_dispatch(
         raise ValueError(f"{len(plan.rows)} planned rows for a batch of {xa.shape[0]}")
     if aux is None:
         aux = torch.from_numpy(plan.aux).to(xa.device)
-    return _dispatch(model, xa, opts, plan, aux, extra_suppress, alignment_heads, loop,
-                     phase_timer)
+    return _dispatch(model, xa, dataclasses.replace(opts, beam_size=1), plan, aux,
+                     extra_suppress, alignment_heads, loop, phase_timer)
 
 
 def greedy_decode_batch_finalize(handle: DecodeHandle) -> list[DecodeResult]:

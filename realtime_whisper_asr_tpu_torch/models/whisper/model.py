@@ -21,7 +21,12 @@ numerics, in PyTorch idiom:
 - the ``int8-kv`` tier (``Whisper.kv_quant``) keeps both decoder caches as
   int8 rows with f32 per-row scales and attends to them with exact int32
   products (``_attend_q8``); its decoder activations are bf16 whatever the
-  weights' dtype, as the JAX package's.
+  weights' dtype, as the JAX package's;
+- beam search (``decode_step(beam_ancestry=)``): each stream's K beams keep
+  their self K/V rows in one physical block of K × T positions, never
+  reordered; a beam reads its ancestors' rows through a (K, K, T) ancestry
+  table (``_attend_beam`` / ``_attend_beam_q8``), and the stream's cross
+  K/V is read once for its K beams, folded into the query axis.
 
 The public functions keep the JAX package's layouts: mel (B, T, n_mels),
 encoder output (B, T/2, d), caches (L, B, H, T, Dh), logits f32.
@@ -206,6 +211,65 @@ def _attend(q, k, v, mask: Optional[torch.Tensor] = None, return_weights: bool =
     return out, (w if return_weights else None)
 
 
+def _fold_beams(x: torch.Tensor, k: int) -> torch.Tensor:
+    """(B·K, H, 1, X) per-beam rows -> (B, H, K, X): each stream's K beams
+    as K query rows against the stream's own K/V."""
+    bk, h, _, d = x.shape
+    return x.view(bk // k, k, h, d).transpose(1, 2)
+
+
+def _unfold_beams(x: torch.Tensor) -> torch.Tensor:
+    """(B, H, K, X) -> (B·K, H, 1, X), the inverse of ``_fold_beams``."""
+    b, h, k, d = x.shape
+    return x.transpose(1, 2).reshape(b * k, h, 1, d)
+
+
+def _select_ancestors(s_all: torch.Tensor, anc: torch.Tensor) -> torch.Tensor:
+    """(B, H, K, K·T) per-physical-row values and the (B, K, K, T) 0/1
+    ancestry -> (B, H, K, T): beam k's value at t from the row holding its
+    position t. A sum of one term and exact zeros, as the JAX package's
+    ``einsum("bjht,bjt->bht")``."""
+    b, h, k, jt = s_all.shape
+    return (s_all.view(b, h, k, k, jt // k) * anc[:, None]).sum(dim=3)
+
+
+def _attend_beam(q, kc, vc, anc, mask):
+    """Beam self-attention through the ancestry table, the JAX package's
+    ``_attend_beam`` for B streams: q (B·K, H, 1, Dh) per-beam queries,
+    kc/vc (B, H, K·T, Dh) the streams' physical rows (beam j's at
+    j·T..j·T+T-1, never reordered), anc (B, K, K, T) with anc[b, k, j, t] = 1
+    iff position t of beam k's history lives in row j, mask additive over T.
+    The scores are the whole-row products against every physical row, then
+    each beam's ancestors selected; the value product contracts (j, t) at
+    once with the weights spread to their rows. Returns (B·K, H, 1, Dh)."""
+    k = anc.shape[1]
+    scale = q.shape[-1] ** -0.5
+    s_all = torch.matmul(_fold_beams(q, k).float(), kc.float().transpose(-1, -2)) * scale
+    w = torch.softmax(_select_ancestors(s_all, anc) + mask, dim=-1)  # (B, H, K, T)
+    b, h, _, t = w.shape
+    w2 = (w[:, :, :, None, :] * anc[:, None]).to(vc.dtype).reshape(b, h, k, k * t)
+    return _unfold_beams(torch.matmul(w2, vc))
+
+
+def _attend_beam_q8(q, k8, v8, ks, vs, anc, mask, out_dtype=torch.bfloat16):
+    """int8-KV ``_attend_beam``, the JAX package's ``_attend_beam_q8``: q
+    quantized per beam row, an exact int32 product against every physical
+    row, ``* sq * ksᵀ * scale``, the ancestors selected, f32 softmax, the
+    weights spread to their rows times the value scales, quantized per beam
+    and head over all (j, t) at once, an exact int32 product, ``* sw``; every
+    scale as ``quantize_rows(compiled=True)``. k8/v8 (B, H, K·T, Dh) int8,
+    ks/vs (B, H, K·T, 1) f32, the rest as ``_attend_beam``."""
+    k = anc.shape[1]
+    scale = q.shape[-1] ** -0.5
+    q8, sq = _quantize_kv_rows(_fold_beams(q, k))
+    s_all = int8_bmm(q8, k8.transpose(-1, -2)).float() * sq * ks.transpose(-1, -2) * scale
+    w = torch.softmax(_select_ancestors(s_all, anc) + mask, dim=-1)  # (B, H, K, T)
+    b, h, _, t = w.shape
+    wv = (w[:, :, :, None, :] * anc[:, None]) * vs.view(b, h, 1, k, t)
+    w8, sw = _quantize_kv_rows(wv.reshape(b, h, k, k * t))
+    return _unfold_beams((int8_bmm(w8, v8).float() * sw).to(out_dtype))
+
+
 def _quantize_kv_rows(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     """The JAX package's ``_quantize_kv_rows`` as its jitted decode computes
     it: (…, T, Dh) -> (int8 rows, f32 per-row scales (…, T, 1)),
@@ -271,10 +335,11 @@ class Block(nn.Module):
         self.fc1 = Linear(d, 4 * d, **factory)
         self.fc2 = Linear(4 * d, d, **factory)
 
-    def mha_block(self, x: torch.Tensor) -> torch.Tensor:
-        """Unmasked full-sequence self-attention (the encoder's)."""
+    def mha_block(self, x: torch.Tensor, mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """Full-sequence self-attention: unmasked (the encoder's) or with an
+        additive mask (the teacher-forced decoder's causal one)."""
         q, k, v = self.attn.project(self.attn_ln(x))
-        o, _ = _attend(q, k, v)
+        o, _ = _attend(q, k, v, mask)
         return x + self.attn.out(_merge_heads(o))
 
     def mlp_block(self, x: torch.Tensor) -> torch.Tensor:
@@ -329,7 +394,9 @@ class DecoderCache:
     position; cross_k/cross_v: (L, B, H, audio_ctx, Dh), computed once per
     encoded window. Under ``int8-kv`` all four are int8 rows and the scale
     fields their f32 per-row scales, (L, B, H, T, 1); otherwise the scale
-    fields are None."""
+    fields are None. A beam search's cache holds B streams of K beams: self
+    buffers (L, B, H, K·text_ctx, Dh), one block of K rows a stream
+    (``Whisper.decode_step``'s ``beam_ancestry``), cross at batch B."""
 
     self_k: torch.Tensor
     self_v: torch.Tensor
@@ -491,13 +558,20 @@ class Whisper(nn.Module):
         return torch.matmul(x.float(), emb.float().t())
 
     def _decoder_layers(self, x, pos: torch.Tensor, mask, cache: DecoderCache,
-                        alignment_mask: Optional[torch.Tensor]):
+                        alignment_mask: Optional[torch.Tensor], anc: Optional[torch.Tensor] = None):
         """Run the decoder blocks over x (B, S, d) at the positions ``pos``
         (S,) long, on the cache's device, writing their K/V into the self
         cache in place (int8 rows and their scales under ``int8-kv``).
+        With ``anc`` (B, K, K, T), the B·K rows of x (S = 1) are K beams of
+        each of B streams: beam k writes at k·T + pos of its stream's
+        physical block and attends through the ancestry table, and the
+        cross-attention reads each stream's K/V once for its K beams.
         Returns (hidden, xattn (B, S, audio_ctx) or None)."""
         capture = alignment_mask is not None
         kvq = cache.kv_quant
+        beams = 1 if anc is None else anc.shape[1]
+        if anc is not None:  # beam j's slot for this position in each block
+            pos = torch.arange(beams, device=pos.device) * anc.shape[-1] + pos
         xattn = None
         for layer, blk in enumerate(self.decoder.blocks):
             q, k, v = blk.attn.project(blk.attn_ln(x))  # each (B,H,S,Dh)
@@ -507,14 +581,20 @@ class Whisper(nn.Module):
             else:
                 rows = (k, v)
             for buf, new in zip(cache.self_buffers(), rows):
-                buf[layer].index_copy_(2, pos, new)
+                buf[layer].index_copy_(2, pos, new if anc is None else _fold_beams(new, beams))
             kc, vc, *scales = (buf[layer] for buf in cache.self_buffers())
-            if kvq:
+            if anc is not None and kvq:
+                o = _attend_beam_q8(q, kc, vc, *scales, anc, mask, out_dtype=x.dtype)
+            elif anc is not None:
+                o = _attend_beam(q, kc, vc, anc, mask)
+            elif kvq:
                 o, _ = _attend_q8(q, kc, vc, *scales, mask, out_dtype=x.dtype)
             else:
                 o, _ = _attend(q, kc, vc, mask)
             x = x + blk.attn.out(_merge_heads(o))
             q = _split_heads(blk.cross.query(blk.cross_ln(x)), blk.cross.n_head)
+            if anc is not None:
+                q = _fold_beams(q, beams)
             if kvq:
                 o, w = _attend_q8(q, cache.cross_k[layer], cache.cross_v[layer],
                                   cache.cross_ks[layer], cache.cross_vs[layer], None,
@@ -522,6 +602,8 @@ class Whisper(nn.Module):
             else:
                 o, w = _attend(q, cache.cross_k[layer], cache.cross_v[layer], None,
                                return_weights=capture)
+            if anc is not None:
+                o, w = _unfold_beams(o), (None if w is None else _unfold_beams(w))
             x = x + blk.cross.out(_merge_heads(o))
             x = blk.mlp_block(x)
             if capture:  # alignment-head-weighted average of (B,H,S,T) weights
@@ -545,19 +627,52 @@ class Whisper(nn.Module):
         return self.logits(x), xattn
 
     def decode_step(self, tokens: torch.Tensor, pos: torch.Tensor, cache: DecoderCache,
-                    alignment_mask: Optional[torch.Tensor] = None):
+                    alignment_mask: Optional[torch.Tensor] = None,
+                    beam_ancestry: Optional[torch.Tensor] = None):
         """One incremental step: tokens (B,) at position ``pos``, a 0-d long
         tensor on the model's device (no host value, so a CUDA graph can
         capture the step) -> (logits (B, V) f32, xattn (B, audio_ctx) f32 or
-        None)."""
+        None).
+
+        ``beam_ancestry`` (S, K, K, T) f32 0/1: the B = S·K rows are the K
+        beams of S streams, and the cache's self buffers hold each stream's
+        beams as one block of K·T positions ((L, S, H, K·T, Dh)) with its
+        cross K/V at batch S; beam k's position-t K/V lives in the block's
+        row j where anc[s, k, j, t] = 1 (``_attend_beam``). Each beam writes
+        its own row at ``pos``; nothing is reordered."""
         dec = self.decoder
         pos = pos.view(1)
         x = (self._emb_rows(tokens) + dec.pos_emb.index_select(0, pos))[:, None, :]
-        j = torch.arange(cache.self_k.shape[3], device=tokens.device)
+        t_ctx = cache.self_k.shape[3] // (1 if beam_ancestry is None else beam_ancestry.shape[1])
+        j = torch.arange(t_ctx, device=tokens.device)
         mask = torch.where(j > pos, _NEG, 0.0)
         x, xattn = self._decoder_layers(x.to(cache.act_dtype), pos, mask, cache,
-                                        alignment_mask)
+                                        alignment_mask, beam_ancestry)
         return self.logits(x[:, 0]), (None if xattn is None else xattn[:, 0])
+
+    def decode_full(self, tokens: torch.Tensor, xa: torch.Tensor) -> torch.Tensor:
+        """Teacher-forced decoder, the JAX package's ``decode_full``: tokens
+        (B, T) from position 0, xa (B, audio_ctx, d) -> logits (B, T, V) f32,
+        every position at once (causal self-attention, no cache)."""
+        dec = self.decoder
+        t = tokens.shape[1]
+        x = (self._emb_rows(tokens) + dec.pos_emb[:t]).to(xa.dtype)
+        causal = torch.triu(torch.full((t, t), _NEG, device=xa.device), diagonal=1)
+        for blk in dec.blocks:
+            x = _decoder_block_full(blk, x, xa, causal)
+        return self.logits(dec.ln(x))
+
+
+def _decoder_block_full(blk: Block, h: torch.Tensor, xa: torch.Tensor,
+                        causal: torch.Tensor) -> torch.Tensor:
+    """One decoder block in the full-sequence (teacher-forced) form: causal
+    self-attention, cross-attention over all of ``xa``, MLP."""
+    h = blk.mha_block(h, causal)
+    q = _split_heads(blk.cross.query(blk.cross_ln(h)), blk.cross.n_head)
+    k = _split_heads(blk.cross.key(xa), blk.cross.n_head)
+    v = _split_heads(blk.cross.value(xa), blk.cross.n_head)
+    o, _ = _attend(q, k, v)
+    return blk.mlp_block(h + blk.cross.out(_merge_heads(o)))
 
 
 def init_params(cfg: WhisperConfig, generator: torch.Generator,

@@ -16,9 +16,10 @@ Port of ``realtime_whisper_asr_tpu/serving.py``. Design:
   behind, the server skips recognition ticks, with a probe tick after
   ``max_consecutive_sheds`` so the monitor's window refreshes.
 
-Diarization, the separation frontend and batched beam search are not
-ported yet: ``diarize=True``, a ``separator`` and a ``beam_size`` above 1
-raise ``NotImplementedError``.
+With ``beam_size`` > 1 (the ASR's, or its ``transcribe_kargs``'s) a group's
+tick is B streams' beam searches in one loop. Diarization and the separation
+frontend are not ported yet: ``diarize=True`` and a ``separator`` raise
+``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -89,7 +90,7 @@ FIXED_BYTES = 3 * 2**30
 
 
 def _hbm_safe_batch(cfg, param_bytes: int, hbm_bytes: Optional[int], kv_quant: bool = False,
-                    itemsize: int = 2) -> Optional[int]:
+                    itemsize: int = 2, beam_size: int = 1) -> Optional[int]:
     """Largest per-dispatch decode batch whose working set fits device
     memory, or None when the device's memory size is unknown (the CPU).
 
@@ -98,22 +99,26 @@ def _hbm_safe_batch(cfg, param_bytes: int, hbm_bytes: Optional[int], kv_quant: b
     N), as the JAX package's formula says, so the budget (the card's memory
     less ``HOLD_BACK``, the weights and ``FIXED_BYTES``) is split over two
     groups of ``_row_bytes`` a row. ``itemsize``: the bytes of the model's
-    dtype; ``kv_quant``: the ``int8-kv`` tier's int8 caches."""
+    dtype; ``kv_quant``: the ``int8-kv`` tier's int8 caches; ``beam_size``:
+    the beams of a stream."""
     if not hbm_bytes or cfg is None:
         return None
     budget = int(hbm_bytes * (1 - HOLD_BACK)) - int(param_bytes) - FIXED_BYTES
-    return max(1, budget // (2 * _row_bytes(cfg, kv_quant, itemsize)))
+    return max(1, budget // (2 * _row_bytes(cfg, kv_quant, itemsize, beam_size)))
 
 
-def _row_bytes(cfg, kv_quant: bool = False, itemsize: int = 2) -> int:
-    """What one batch row costs the card, from what the port allocates:
+def _row_bytes(cfg, kv_quant: bool = False, itemsize: int = 2, beam_size: int = 1) -> int:
+    """What one batch row (one stream) costs the card, from what the port
+    allocates:
 
-    - the decode loop's state of one row (``decode._new_state``) at the
-      largest loop shape: the 30 s window bucket (``n_audio_ctx`` cross
-      frames), a self cache of ``n_text_ctx`` positions, 224 capture rows
-      (the largest loop bound) and ``n_text_ctx`` token slots. Cross and
+    - the decode loop's state of one row (``decode._new_state``, or
+      ``beam.new_state`` for K = ``beam_size`` > 1) at the largest loop
+      shape: the 30 s window bucket (``n_audio_ctx`` cross frames), K self
+      caches of ``n_text_ctx`` positions and one cross K/V, K × 224 capture
+      rows (the largest loop bound) and K × ``n_text_ctx`` token slots; a
+      beam row adds its (K, K, ``n_text_ctx``) f32 ancestry table. Cross and
       self K/V in the model's dtype, or under ``kv_quant`` int8 rows plus an
-      f32 scale a row of Dh, i.e. 1 + 4/Dh bytes an element;
+      f32 scale a row of Dh;
     - times ``decode.MAX_GRAPHS``: each loop shape the ``DecodeLoop`` keeps
       holds its own state buffers for its batch rows (the two groups in
       flight run in two of them);
@@ -126,21 +131,25 @@ def _row_bytes(cfg, kv_quant: bool = False, itemsize: int = 2) -> int:
     ``decode._state_bytes`` of states allocated at that shape."""
     from realtime_whisper_asr_tpu_torch.models.whisper.decode import MAX_GRAPHS
 
+    k, ctx = beam_size, cfg.n_text_ctx
     dh = cfg.n_text_state // cfg.n_text_head
-    kv_elem = 1 + 4 / dh if kv_quant else itemsize
-    kv = 2 * cfg.n_text_layer * cfg.n_text_state * (cfg.n_text_ctx + cfg.n_audio_ctx) * kv_elem
-    capture = 224 * cfg.n_audio_ctx * 4
-    scalars = cfg.n_text_ctx * 8 + 1 + 4 + 3 * 8  # tokens; finished, sum_lp, last_ts, total, n_prefix
-    state_row = int(kv) + capture + scalars
+    elems = 2 * cfg.n_text_layer * cfg.n_text_state * (k * ctx + cfg.n_audio_ctx)
+    kv = elems + elems // dh * 4 if kv_quant else elems * itemsize
+    capture = k * 224 * cfg.n_audio_ctx * 4
+    if k == 1:  # tokens; finished, sum_lp, last_ts, total, n_prefix, seed, temp
+        scalars = ctx * 8 + 1 + 4 + 8 + 8 + 8 + 8 + 4
+    else:  # tokens, ancestry; finished, scores, last_ts; total, n_prefix
+        scalars = k * ctx * 8 + k * k * ctx * 4 + k * (1 + 4 + 8) + 8 + 8
+    state_row = kv + capture + scalars
     scores = cfg.n_audio_head * cfg.n_audio_ctx**2 * (2 * 4 + itemsize)
     return MAX_GRAPHS * state_row + scores
 
 
 def _device_batch_cap(asr) -> Optional[int]:
     """``_hbm_safe_batch`` for a model on the card: its parameter and
-    buffer bytes (the int8/int4 weights are buffers), its dtype and cache
-    kind, and the card's memory; None for a backend without a model or one
-    on the CPU."""
+    buffer bytes (the int8/int4 weights are buffers), its dtype, cache kind
+    and beams, and the card's memory; None for a backend without a model or
+    one on the CPU."""
     model = getattr(asr, "model", None)
     cfg = getattr(asr, "cfg", None)
     device = getattr(asr, "device", None)
@@ -151,7 +160,15 @@ def _device_batch_cap(asr) -> Optional[int]:
     dtype = getattr(model, "dtype", torch.bfloat16)
     itemsize = dtype.itemsize if isinstance(dtype, torch.dtype) else 2
     return _hbm_safe_batch(cfg, nbytes, torch.cuda.get_device_properties(device).total_memory,
-                           kv_quant=bool(getattr(model, "kv_quant", False)), itemsize=itemsize)
+                           kv_quant=bool(getattr(model, "kv_quant", False)), itemsize=itemsize,
+                           beam_size=_beam_size(asr))
+
+
+def _beam_size(asr) -> int:
+    """The beams of the ASR's decode: ``transcribe_kargs["beam_size"]``,
+    else its ``beam_size``, else 1."""
+    return int(getattr(asr, "transcribe_kargs", {}).get("beam_size",
+                                                        getattr(asr, "beam_size", 1)))
 
 
 def _silero_factory(device) -> Callable[[], object]:
@@ -185,9 +202,6 @@ class StreamServer:
         if separator is not None:
             raise NotImplementedError("the separation frontend is not ported yet "
                                       "(ROADMAP queue 1 item 13)")
-        if getattr(asr, "transcribe_kargs", {}).get("beam_size", 1) > 1:
-            raise NotImplementedError("batched beam search is not ported yet "
-                                      "(ROADMAP queue 1 item 12)")
         #: memory-derived ceiling on the per-dispatch batch (None: unknown
         #: memory). A larger max_batch is clamped, not honored-then-OOM: the
         #: scheduler still serves every stream by splitting each round into

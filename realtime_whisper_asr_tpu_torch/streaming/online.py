@@ -284,13 +284,14 @@ class OnlineASRProcessor:
         (decode.patch_aux_device_draft). The host can only force a prefix
         from hypothesis N-2 here; without this the decode re-generates
         N-1's tokens step by step. None when there is no in-flight decode
-        handle or the prefix offsets don't line up (first ticks, post-trim
+        handle, when it was a beam search's (its packed rows are no greedy
+        result), or the prefix offsets don't line up (first ticks, post-trim
         resets): the verify is lossless either way."""
         if self._inflight is None or not req.get("prefix_ids"):
             return None
         prev_st = self._inflight[0]
         h = prev_st.get("decode_handle")
-        if h is None:
+        if h is None or prev_st.get("beam"):
             return None
         offset = len(req["prefix_ids"]) - len(prev_st.get("prefix_ids") or [])
         if offset < 0:

@@ -14,7 +14,8 @@ built by ``tools/golden.py``'s ``build_asr``).
   the repeated pad row's plan being a ``shift`` in the third tick (its
   stream's ring is shifted once, not twice). Byte counts differ by design:
   the JAX package pads its copy to a power of two.
-- One item goes through ``transcribe``; ``beam_size`` > 1 raises.
+- One item goes through ``transcribe``; with ``beam_size`` > 1 every row is
+  a beam search, equal to its stream's own.
 """
 
 import os
@@ -155,6 +156,15 @@ def test_counters_and_one_item(asrs, monkeypatch):
     calls = []
     monkeypatch.setattr(ours, "transcribe", lambda *a, **k: calls.append(a) or "one")
     assert ours.transcribe_batch(items[:1]) == ["one"] and len(calls) == 1
+    # beam_size 2: every row a beam search, each equal to its stream's own
+    # (a prompt in every row, so each row's bucket is the group's)
     monkeypatch.setitem(ours.transcribe_kargs, "beam_size", 2)
-    with pytest.raises(NotImplementedError, match="item 12"):
-        ours.transcribe_batch_dispatch(items)
+    prompts = ["hello there", "one two", "good morning"]
+    beam_items = [dict(it, key=f"beam{i}", init_prompt=prompts[i]) for i, it in enumerate(items)]
+    st = ours.transcribe_batch_dispatch(beam_items)
+    assert st["beam"]
+    for it, res in zip(beam_items, ours.transcribe_batch_finalize(st)):
+        ours.set_active_stream(it["key"] + "-alone")
+        alone = TorchWhisperASR.transcribe(ours, it["audio"], it["init_prompt"])
+        assert list(res.tokens) == list(alone.tokens)
+        assert [seg.text for seg in res] == [seg.text for seg in alone]

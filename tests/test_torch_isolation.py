@@ -11,8 +11,10 @@
 - The kernel wrappers (log-mel, packed-int4 matmul, matmul chain), the int8
   product and the quantized modules' dispatch have no ``try``/``except`` that
   could fall back from a kernel to its plain version; nor have the VAD and
-  the device audio ring one that could fall back to the CPU. The server's
-  handlers only count a failed group and reset it.
+  the device audio ring one that could fall back to the CPU. The sampler
+  (``ops/threefry.py``) and the beam search (``beam.py``) have neither a
+  handler nor a branch on the device's type. The server's handlers only
+  count a failed group and reset it.
 """
 
 import ast
@@ -27,7 +29,14 @@ from realtime_whisper_asr_tpu_torch import asr as asr_mod
 from realtime_whisper_asr_tpu_torch.models.vad import silero_like
 from realtime_whisper_asr_tpu_torch.models.whisper import model as model_mod
 from realtime_whisper_asr_tpu_torch.models.whisper.config import get_config
-from realtime_whisper_asr_tpu_torch.ops import int4_matmul, int8_matmul, logmel, matmul_chain
+from realtime_whisper_asr_tpu_torch.models.whisper import beam
+from realtime_whisper_asr_tpu_torch.ops import (
+    int4_matmul,
+    int8_matmul,
+    logmel,
+    matmul_chain,
+    threefry,
+)
 
 torch.set_num_threads(2)
 
@@ -118,6 +127,17 @@ def test_kernel_wrappers_have_no_fallback(mod):
     with open(mod.__file__) as f:
         tree = ast.parse(f.read())
     assert not [n for n in ast.walk(tree) if isinstance(n, ast.Try)]
+
+
+@pytest.mark.parametrize("mod", [threefry, beam], ids=["threefry", "beam"])
+def test_sampler_and_beam_have_no_device_branch(mod):
+    """The same code runs on a CPU and a CUDA tensor: no handler, and no
+    branch on a tensor's device type."""
+    with open(mod.__file__) as f:
+        tree = ast.parse(f.read())
+    assert not [n for n in ast.walk(tree) if isinstance(n, ast.Try)]
+    assert not [n for n in ast.walk(tree) if isinstance(n, ast.Attribute) and n.attr == "type"]
+    assert "cpu" not in ast.unparse(tree).replace("CPU", "")
 
 
 def test_quantized_linear_dispatch_has_no_fallback():

@@ -7,8 +7,10 @@ and ``tests/test_streaming.py``'s: isolation, round-robin, shedding and
 recovery, close and flush, the staged pending utterance, batching and
 language groups, the pipelined overlap, no double tick, concurrent churn,
 group failures, the TCP transport over a real socket, and the memory-safe
-batch with the same numbers. Diarization and the separation frontend are
-not ported: there the port's server raises ``NotImplementedError``.
+batch with the same numbers (beam states too). Diarization and the
+separation frontend are not ported: there the port's server raises
+``NotImplementedError``; a ``beam_size`` of 2 is served as the JAX server
+serves it.
 """
 
 import socket
@@ -326,16 +328,23 @@ def test_close_stream_flushes_staged_pending_utterance(pkg):
 
 def test_diarize_and_separation(pkg):
     """The JAX server takes both (tests/test_serving.py holds what they
-    do); the port's raises ``NotImplementedError`` naming the queue item."""
+    do); the port's raises ``NotImplementedError`` naming the queue item.
+    Both servers serve a backend whose ``beam_size`` is 2 alike."""
     words = [(0.5, 0.9, " one"), (1.0, 1.4, " two"), (2.0, 2.4, " three")]
     if pkg.name == "torch":
         for kw in ({"diarize": True}, {"separator": _RecordingSeparator()}):
             with pytest.raises(NotImplementedError, match="item 13"):
                 pkg.StreamServer(PerStreamFakeASR({1: words}), use_vad=False, **kw)
-        asr = PerStreamFakeASR({1: words})
-        asr.transcribe_kargs = {"beam_size": 2}
-        with pytest.raises(NotImplementedError, match="item 12"):
-            pkg.StreamServer(asr, use_vad=False)
+        texts = []
+        for serving, _ in PACKAGES.values():
+            asr = PerStreamFakeASR({1: words})
+            asr.transcribe_kargs = {"beam_size": 2}
+            server = serving.StreamServer(asr, use_vad=False, online_chunk_size=0.5)
+            sid = server.create_stream()
+            outs = {sid: []}
+            _feed_steps(server, [sid], [(t, t + 1.0) for t in range(4)], outs)
+            texts.append("".join(r.text for r in outs[sid] + server.close_stream(sid)))
+        assert texts[0] == texts[1] and "one" in texts[1] and "three" in texts[1], texts
         return
     sep = _RecordingSeparator()
     server = pkg.StreamServer(PerStreamFakeASR({1: words}), use_vad=False,
@@ -380,29 +389,41 @@ def test_row_bytes_equals_allocated_loop_state(kv_quant):
     ``MAX_GRAPHS`` times the state bytes one row adds at the largest loop
     shape (30 s bucket, the whole self cache, the 224-step bound with word
     capture), plus the encoder's score transient; and the int8-kv cap above
-    the bf16 one, as tests/test_serving.py asserts of the JAX package."""
+    the bf16 one, as tests/test_serving.py asserts of the JAX package. The
+    same for a beam search of 5 beams (``beam.new_state``: 5 self caches
+    and capture buffers, 5 token rows and the (5, 5, n_text_ctx) ancestry
+    table a stream, the cross K/V once), whose cap at large-v3 bf16 is
+    about half the greedy one."""
     from realtime_whisper_asr_tpu_torch.models.whisper import decode as D
     from realtime_whisper_asr_tpu_torch.models.whisper.model import Whisper
 
     cfg = get_config("test-tiny")
     model = Whisper.empty(cfg, torch.bfloat16, "cpu", "int8-kv" if kv_quant else None)
-    opts = D.DecodeOptions(word_timestamps=True, max_new_tokens=10**6)
-    max_new, _ = D.plan_decode_budget(cfg, opts, 8, 0)
-    assert max_new == 224  # the largest loop bound
-    p = cfg.n_text_ctx - max_new
-
-    def state_bytes(batch: int) -> int:
-        key = D.LoopKey(id(model), cfg.n_audio_ctx, p, max_new, cfg.n_text_ctx, 0, batch,
-                        opts, (), None)
-        return D._state_bytes(D._new_state(model, key, torch.bfloat16, "cpu"))
-
-    row = state_bytes(2) - state_bytes(1)
-    assert state_bytes(1) == row + 16  # the shared position and loop end
     scores = cfg.n_audio_head * cfg.n_audio_ctx**2 * (4 + 4 + 2)
-    assert PS._row_bytes(cfg, kv_quant, 2) == D.MAX_GRAPHS * row + scores
+    for beam_size in (1, 5):
+        opts = D.DecodeOptions(word_timestamps=True, max_new_tokens=10**6, beam_size=beam_size)
+        max_new, _ = D.plan_decode_budget(cfg, opts, 8, 0)
+        assert max_new == 224  # the largest loop bound
+        p = cfg.n_text_ctx - max_new
+
+        def state_bytes(batch: int) -> int:
+            key = D.LoopKey(id(model), cfg.n_audio_ctx, p, max_new, cfg.n_text_ctx, 0, batch,
+                            opts, (), None)
+            return D._state_bytes(D._loop_parts(model, key, torch.bfloat16, "cpu", None,
+                                                None)[0])
+
+        row = state_bytes(2) - state_bytes(1)
+        assert state_bytes(1) == row + (16 if beam_size == 1 else 8)  # the shared scalars
+        assert PS._row_bytes(cfg, kv_quant, 2, beam_size) == D.MAX_GRAPHS * row + scores
     big = get_config("large-v3")
     assert (PS._hbm_safe_batch(big, 2 * 10**9, 80 * 2**30, kv_quant=True)
             > PS._hbm_safe_batch(big, 2 * 10**9, 80 * 2**30))
+    big_scores = big.n_audio_head * big.n_audio_ctx**2 * (4 + 4 + 2)
+    greedy, beam = ((PS._row_bytes(big, False, 2, k) - big_scores) // D.MAX_GRAPHS
+                    for k in (1, 5))
+    assert 318e6 < greedy < 322e6 and 612e6 < beam < 622e6, (greedy, beam)
+    caps = [PS._hbm_safe_batch(big, 2 * 10**9, 80 * 2**30, beam_size=k) for k in (1, 5)]
+    assert caps[1] < caps[0] * 0.6, caps
 
 
 def test_server_clamps_oversized_max_batch(pkg, monkeypatch):
