@@ -115,6 +115,23 @@ Phases, each failing the run with a non-zero exit:
      the ``beam5`` row, batched beam equal to per-row beam, the ladder's
      tokens and ``detect_language`` equal to the port's on the CPU, and
      ``decode_full`` within 1e-4 of ``decode_span``.
+ 15. the application path: ``phase_separation`` holds the separation
+     (``separate_vocals`` and ``separate_stems_device``, three variants at
+     the 8, 16 and 30 s buckets), the band-pass, the phase vocoder with its
+     carried phase and the dedup features on the card against the CPU with
+     TF32 off, and times the separation a window beside its bound;
+     ``phase_app_golden`` runs the golden f32 weights through the port's
+     StreamingApp on the card and the CPU in bench.py's scenarios 2-5 at
+     test-tiny (5: the neural separator fused into the encode) and a time
+     stretch / adaptive decode / diarization case (lines, labels, stats
+     equal; a near-tie flip diagnosed), then ``StreamServer(diarize=True,
+     separator=<trained net>)`` on 2 golden streams, card == CPU;
+     ``phase_app`` is bench.py's scenario 5 at full width (large-v3
+     ``int8-all``, the fused separator, the Silero-like VAD on the card,
+     music-backed speech, a warm-up and a timed 16 s pass): RTF, results
+     and skips, K1 launches = windows encoded, no capture, the separation's
+     device ms a window beside the encode's, the frontend's peak memory a
+     row beside ``_row_bytes``' reserve for it, a PhaseTimer split.
 Prints each phase's seconds, one ``{"kernels": [...]}`` line, then as the
 last line
 ``{"ok": true, "device": {...}}``. Exits non-zero without a result when CUDA
@@ -2533,6 +2550,545 @@ def check_golden_beam(asr, guard: FailOnLog) -> None:
           f"decode_span max |Δ| {err:.3g} (tolerance 1e-4 x scale + 1e-5)")
 
 
+# ----------------------------------------------------- the application path
+
+
+def music_backed_speech(seconds: float, seed: int = 0) -> np.ndarray:
+    """bench.py's scenario 5 audio (bench.py:58-64): its synthetic speech
+    over a chord of 220, 330 and 55 Hz tones."""
+    speech = synthetic_speech(seconds, seed)
+    t = np.arange(int(seconds * SR)) / SR
+    music = 0.15 * (np.sin(2 * np.pi * 220 * t) + 0.7 * np.sin(2 * np.pi * 330 * t)
+                    + 0.5 * np.sin(2 * np.pi * 55 * t))
+    return (speech + music.astype(np.float32)).astype(np.float32)
+
+
+#: the separation's window buckets (the ASR's 8/16/30 s windows, which the
+#: fused frontend separates) and its tolerances, card against the CPU with
+#: TF32 off: f32 convolutions summed in other orders (cuDNN's algorithms)
+SEP_BUCKETS_S = (8, 16, 30)
+SEP_TOL = 1e-4
+#: the phase vocoder's: the card's atan2 against the CPU's differs in the
+#: last bit, and a phase of thousands of radians carries it (the same gap as
+#: the port's CPU run against the JAX package's, tests/test_torch_dsp.py)
+STRETCH_TOL, PHASE_TOL = 2e-3, 0.05
+
+
+def sep_macs_per_bin(params: dict) -> int:
+    """Multiply-adds per time-frequency bin of the separator's convolutions
+    (9 taps x input x output channels each): 17,784 for the default net."""
+    from realtime_whisper_asr_tpu_torch.models import separation_nn as SEP
+
+    widths = [SEP._in_out(params[f"enc{i}_w"]) for i in range(SEP._n_layers(params))]
+    widths.append(SEP._in_out(params["out_w"]))
+    return sum(9 * c_in * c_out for c_in, c_out in widths)
+
+
+def phase_separation(smi: str) -> None:
+    """The separation path's library calls on the card against the same
+    functions on the CPU (TF32 off): ``separate_vocals`` and
+    ``separate_stems_device`` for the three packaged variants at the 8, 16
+    and 30 s buckets (music-backed speech), the band-pass, the phase
+    vocoder over three chunks with its carried phase (each chunk given the
+    CPU's phase) and the dedup features (B = 3, a valid prefix). Prints
+    max |delta| against each tolerance, then the default net's device time a
+    window (CUDA events, L2 flushed, median of 30) at each bucket beside its
+    bound (its f32 operations against the card's f32 peak, or its bytes)
+    and the small net's at 16 s; then each stage's host ms a call (median
+    of 10, the host clock, the copies back included) as the app calls it."""
+    import torch
+
+    from realtime_whisper_asr_tpu_torch.models import separation_nn as SEP
+    from realtime_whisper_asr_tpu_torch.ops import dsp, features
+
+    worst = {}
+    with torch.inference_mode():
+        for variant in ("default", "small", "4stem"):
+            host = dict(np.load(SEP.VARIANT_WEIGHTS[variant]))
+            card, cpu = SEP.params_from_jax(host, "cuda"), SEP.params_from_jax(host, "cpu")
+            for sec in SEP_BUCKETS_S:
+                x = torch.from_numpy(music_backed_speech(sec, seed=sec))
+                ref = SEP.separate_stems_device(cpu, x)
+                stems = SEP.separate_stems_device(card, x.cuda()).cpu()
+                vocals = SEP.separate_vocals(card, x.cuda()).cpu()
+                err = max(float((stems - ref).abs().max()), float((vocals - ref[0]).abs().max()))
+                worst[f"{variant} {sec} s"] = err
+        bp = {}
+        for n in (16384, 65536, 262144):
+            x = torch.from_numpy(music_backed_speech(n / SR, seed=n))
+            bp[n] = float((dsp.bandpass_filter(x.cuda()).cpu() - dsp.bandpass_filter(x)).abs().max())
+        x = music_backed_speech(3.0, seed=3)
+        st_err, ph_err = 0.0, 0.0
+        for rate in (0.8, 1.25):
+            phase = torch.zeros(513)
+            for c in range(3):
+                seg = torch.from_numpy(x[c * SR : (c + 1) * SR])
+                ref, ref_phase = dsp.time_stretch(seg, rate, phase_in=phase, carry_phase=True)
+                got, got_phase = dsp.time_stretch(seg.cuda(), rate, phase_in=phase.cuda(),
+                                                  carry_phase=True)
+                st_err = max(st_err, float((got.cpu() - ref).abs().max()))
+                ph_err = max(ph_err, float((got_phase.cpu() - ref_phase).abs().max()))
+                phase = ref_phase
+        chunks = torch.from_numpy(np.stack([music_backed_speech(16384 / SR, seed=s)
+                                            for s in range(3)]))
+        chunks[:, 12000:] = 0
+        ft_err = float((features.dedup_features(chunks.cuda(), n_valid=12000).cpu()
+                        - features.dedup_features(chunks, n_valid=12000)).abs().max())
+    sep_err = max(worst.values())
+    print(f"separation on {smi}: separate_vocals and separate_stems_device, card vs CPU "
+          f"(TF32 off), max |delta| over 3 variants x {SEP_BUCKETS_S} s {sep_err:.3g} (tolerance "
+          f"{SEP_TOL:g}; " + ", ".join(f"{k} {v:.2g}" for k, v in worst.items()) + ")")
+    print(f"separation on {smi}: bandpass_filter max |delta| {max(bp.values()):.3g} (tolerance "
+          f"1e-5); time_stretch (rates 0.8, 1.25, 3 chunks, carried phase) output "
+          f"{st_err:.3g} (tolerance {STRETCH_TOL:g}), phase {ph_err:.3g} rad (tolerance "
+          f"{PHASE_TOL:g}); dedup_features (B = 3, n_valid) {ft_err:.3g} (tolerance 1e-5)")
+    if (sep_err > SEP_TOL or max(bp.values()) > 1e-5 or st_err > STRETCH_TOL
+            or ph_err > PHASE_TOL or ft_err > 1e-5):
+        raise AssertionError("separation: the card disagrees with the CPU beyond a tolerance")
+    for variant, secs in (("default", SEP_BUCKETS_S), ("small", (16,))):
+        host = dict(np.load(SEP.VARIANT_WEIGHTS[variant]))
+        card = SEP.params_from_jax(host, "cuda")
+        macs = sep_macs_per_bin(host)
+        weight_bytes = sum(v.size * 4 for v in host.values())
+        for sec in secs:
+            n = sec * SR
+            x = torch.from_numpy(music_backed_speech(sec)).cuda()
+            with torch.inference_mode():
+                ms = time_cuda_ms(lambda: SEP.separate_vocals(card, x))
+            bins = (1 + n // SEP.HOP) * SEP.F_BINS
+            ops = 2 * macs * bins
+            bound_ms, bound_by = _bound(8 * n + weight_bytes, ops, PEAK_F32_FLOPS)
+            print(f"separation on {smi}: {variant} net ({macs:,} MACs a bin), {sec} s window "
+                  f"({bins:,} bins, {ops / 1e9:.1f} GFLOP): {ms:.3f} ms device (CUDA events, L2 "
+                  f"flushed, median of 30); bound {bound_ms:.3f} ms ({bound_by}); "
+                  f"{ops / ms / 1e9:.1f} TFLOP/s")
+    print(f"stages on {smi}: host ms a call (median of 10): " + ", ".join(
+        f"{k} {v:.2f}" for k, v in stage_host_ms().items()))
+
+
+def stage_host_ms() -> dict:
+    """Host ms of one call of each stage the app can run on a chunk, as it
+    calls them (median of 10 after 2 warm-up calls): the dedup gate (numpy
+    features, and the card's), the band-pass and the neural separator on
+    the card and on the host, the time stretch on the card, the speaker
+    embedding of a 2 s utterance."""
+    from realtime_whisper_asr_tpu_torch.models.separation_nn import NeuralSeparator
+    from realtime_whisper_asr_tpu_torch.models.speaker import SpeakerEmbedder
+    from realtime_whisper_asr_tpu_torch.pipeline import (
+        AudioDeduplicator,
+        BandpassSeparator,
+        SpeechRateAudioProcessor,
+    )
+
+    chunk = music_backed_speech(1.0, seed=5)
+    stretch = SpeechRateAudioProcessor()
+    stages = {
+        "dedup (numpy, 1 s)": AudioDeduplicator(time_window_s=0.0).should_skip,
+        "dedup (card features, 1 s)": AudioDeduplicator(use_device=True,
+                                                        time_window_s=0.0).should_skip,
+        "band-pass (card, 1 s)": BandpassSeparator().separate,
+        "neural separator (card, 1 s)": NeuralSeparator().separate,
+        "neural separator (host mirror, 1 s)": NeuralSeparator(use_device=False).separate,
+        "time stretch (card, 1 s at 0.8)": lambda c: stretch.process(c, 20.0),
+        "speaker embedding (2 s)": lambda c: SpeakerEmbedder()(np.concatenate([c, c])),
+    }
+    out = {}
+    for name, fn in stages.items():
+        times = []
+        for i in range(12):
+            t0 = time.perf_counter()
+            fn(chunk)
+            times.append(1e3 * (time.perf_counter() - t0))
+        out[name] = float(np.median(times[2:]))
+    return out
+
+
+def _app_case(name: str) -> dict:
+    """The parity cases of tests/test_torch_app.py: bench.py's scenarios 2-5
+    (run_scenario's overrides, their models cut to test-tiny) and the
+    speech-rate features with diarization."""
+    off = {"audio_deduplication.enable": False, "skip_detector.enable": False,
+           "speech_rate_adaptive.enable": False}
+    return {
+        "scenario2": dict(language="en", overrides=dict(off)),
+        "scenario3": dict(language="zh", overrides={"skip_detector.enable": True,
+                                                    "streaming.agreement_n": 2,
+                                                    "audio_deduplication.enable": False}),
+        "scenario4": dict(language="en", task="translate", quantization="int8-all",
+                          overrides=dict(off, **{"audio_deduplication.enable": True,
+                                                 "streaming.prefix_policy": "last"})),
+        "scenario5": dict(language="en", quantization="int8-all", music=True,
+                          overrides=dict(off, **{"vocal_separation.enable": True,
+                                                 "vocal_separation.method": "neural",
+                                                 "vocal_separation.fuse_encode": True,
+                                                 "streaming.prefix_policy": "last"})),
+        "rate-diarize": dict(language="en", seconds=12.0,
+                             overrides={"audio_deduplication.enable": False,
+                                        "asr_optimization.time_stretch_enable": True,
+                                        "asr_optimization.adaptive_params_enable": True,
+                                        "diarization.enable": True,
+                                        "diarization.min_audio_s": 0.3}),
+    }[name]
+
+
+APP_CASES = ("scenario2", "scenario3", "scenario4", "scenario5", "rate-diarize")
+
+
+def golden_asr(device: str, quantization=None):
+    """The golden test-tiny weights at f32 on ``device``, 24-token caps."""
+    import torch
+
+    from realtime_whisper_asr_tpu_torch.asr import TorchWhisperASR
+    from realtime_whisper_asr_tpu_torch.models.whisper.config import get_config
+    from realtime_whisper_asr_tpu_torch.models.whisper.convert import load_flat_npz
+
+    asr = TorchWhisperASR(cfg=get_config("test-tiny"), dtype=torch.float32, device=device,
+                          params=load_flat_npz(os.path.join(GOLDEN, "params.npz")),
+                          quantization=quantization)
+    asr.transcribe_kargs["max_total_tokens"] = 24  # random weights never emit EOT
+    return asr
+
+
+def app_session(device: str, name: str, guard: FailOnLog) -> dict:
+    """One parity case through the port's StreamingApp on ``device``: the
+    golden ASR, a stepping fake clock, 1 s chunks of bench.py's feed ->
+    the lines, stats and stage readings, and each decoded window's inputs
+    and tokens (for a near-tie diagnosis)."""
+    from realtime_whisper_asr_tpu_torch.app import StreamingApp
+    from realtime_whisper_asr_tpu_torch.config import ConfigManager
+    from realtime_whisper_asr_tpu_torch.io import SimulatedMicStream
+
+    case = _app_case(name)
+    asr = golden_asr(device, case.get("quantization"))
+    if case.get("task") == "translate":
+        asr.set_translate_task()
+    asr.original_language = case["language"]
+    windows, calls = [], []
+    dispatch, finalize = asr._transcribe_window_dispatch, asr._transcribe_window_finalize
+
+    def recording_dispatch(audio, init_prompt, time_offset, prefix_ids=None, draft_ids=None,
+                           prompt_ids=None, device_draft=None):
+        calls.append((np.array(audio), init_prompt, list(prefix_ids or []), prompt_ids))
+        return dispatch(audio, init_prompt, time_offset, prefix_ids, draft_ids, prompt_ids,
+                        device_draft)
+
+    def recording_finalize(st):
+        res = finalize(st)
+        windows.append((calls.pop(0), [int(t) for t in res.tokens]))
+        return res
+
+    asr._transcribe_window_dispatch = recording_dispatch
+    asr._transcribe_window_finalize = recording_finalize
+    cm = ConfigManager(autoload=False)
+    cm.set("performance.display_interval_s", 1e9)
+    for k, v in case["overrides"].items():
+        cm.set(k, v)
+    now = {"t": 0.0}
+
+    def clock():
+        now["t"] += 0.01
+        return now["t"]
+
+    lines = []
+    app = StreamingApp(config=cm, asr=asr, language=case["language"],
+                       task=case.get("task", "transcribe"), output=lines.append, clock=clock,
+                       device=device)
+    seconds = case.get("seconds", 8.0)
+    audio = music_backed_speech(seconds) if case.get("music") else synthetic_speech(seconds)
+    stats = app.record_session(SimulatedMicStream(audio), chunk_seconds=1.0)
+    app.output.flush()
+    app.shutdown()
+    if guard.records:
+        raise AssertionError(f"app {name} on {device}: an exception was swallowed: "
+                             f"{guard.records}")
+    return {"lines": lines, "stats": dict(stats.__dict__), "clock": now["t"],
+            "fused": app.fused_separation, "pipeline": app.last_session_pipeline,
+            "stretch": dict(app.stretch_processor.stats) if app.stretch_processor else None,
+            "diarizer": app.diarizer.get_stats() if app.diarizer else None,
+            "_windows": windows, "_asr": asr}
+
+
+def _window_near_tie(card, cpu, call, got: list, want: list) -> tuple[str, bool]:
+    """A window whose inputs agree and whose tokens part: teacher-forced
+    along the CPU's tokens with the window's prompt and prefix, the card's
+    logits against the CPU's -> (diagnosis, whether it is a near-tie flip:
+    the CPU's margin between its token and the card's within the card-vs-CPU
+    logit difference already seen on the steps before it)."""
+    import torch
+
+    from realtime_whisper_asr_tpu_torch.models.whisper import decode as D
+
+    audio, init_prompt, prefix, prompt_ids = call
+    i = next(j for j in range(min(len(want), len(got)) + 1)
+             if j == min(len(want), len(got)) or want[j] != got[j])
+    if i >= min(len(want), len(got)):
+        return f"lengths part at {i}: {got} vs {want}", False
+    logits = []
+    for asr in (card, cpu):
+        ids = prompt_ids if prompt_ids is not None else (
+            asr.tokenizer.encode(init_prompt) if init_prompt else None)
+        plan = D.plan_window(asr.cfg, asr._make_opts(), ids, prefix or None)
+        asr._sync_audio_and_aux(audio, plan.aux)
+        with torch.inference_mode():
+            xa = asr._encode_from_buf(len(audio))
+            seq = torch.from_numpy(np.concatenate([plan.init, want[: i + 1]]).astype(np.int64))
+            out, _ = asr.model.decode_span(seq[None].to(xa.device), 0,
+                                           asr.model.init_cache(xa, text_ctx=448))
+        p = len(plan.init)
+        logits.append(out[0, p - 1 : p + i].float().cpu().numpy())
+    card_l, cpu_l = logits
+    margin = float(cpu_l[i, want[i]] - cpu_l[i, got[i]])
+    noise = float(np.abs(card_l[:i] - cpu_l[:i]).max()) if i else 0.0
+    msg = (f"token {i} (CPU {want[i]}, card {got[i]}): CPU margin {margin:.4g}, card-vs-CPU "
+           f"max |dlogit| {noise:.4g} over the {i} agreeing steps")
+    return msg, 0 <= margin <= noise
+
+
+def phase_app_golden(guard: FailOnLog, smi: str) -> list[str]:
+    """The golden test-tiny weights at f32 through the port's StreamingApp on
+    the card and on the CPU, in the parity cases' feature sets (bench.py's
+    scenarios 2-5 at test-tiny, 5 with the neural separator fused into the
+    encode; the time stretch, adaptive decode parameters and diarization):
+    the lines (speaker labels included), SessionStats, stage readings and
+    clock must be equal. A difference is diagnosed at its first window whose
+    inputs agree and tokens part (as phase_golden_quant does): a near-tie
+    flip is printed and returned, anything else fails. Then
+    ``StreamServer(diarize=True, separator=<the trained neural net>)`` on 2
+    golden streams (the VAC clip, and clips 1 and 2 around a pause) with the
+    Silero-like VAD: each result's text and speaker label card == CPU."""
+    flips = []
+    for name in APP_CASES:
+        t0 = time.perf_counter()
+        card, cpu = app_session("cuda", name, guard), app_session("cpu", name, guard)
+        wc, wp = card.pop("_windows"), cpu.pop("_windows")
+        acard, acpu = card.pop("_asr"), cpu.pop("_asr")
+        if card == cpu:
+            print(f"app golden {name}: card == CPU: {len(card['lines'])} lines, stats "
+                  f"{card['stats']}, pipeline {card['pipeline']}, fused separation "
+                  f"{card['fused']}, stretch {card['stretch']}, diarizer {card['diarizer']} "
+                  f"({time.perf_counter() - t0:.1f} s)")
+            continue
+        k = next((j for j, (a, b) in enumerate(zip(wc, wp)) if a[1] != b[1]), None)
+        if k is None or not all(np.array_equal(x, y) if isinstance(x, np.ndarray) else x == y
+                                for x, y in zip(wc[k][0], wp[k][0])):
+            raise AssertionError(f"app golden {name}: card {card} != CPU {cpu}, no window with "
+                                 f"equal inputs and parting tokens")
+        msg, tie = _window_near_tie(acard, acpu, wp[k][0], wc[k][1], wp[k][1])
+        msg = f"app golden {name}: NEAR-TIE FLIP at window {k}: {msg}"
+        print(msg)
+        if not tie:
+            raise AssertionError(f"app golden {name}: card {card} != CPU {cpu}: {msg}")
+        flips.append(msg)
+    server_out = {device: _serve_diarized(device, guard) for device in ("cuda", "cpu")}
+    if server_out["cuda"] != server_out["cpu"]:
+        raise AssertionError(f"app golden server: card {server_out['cuda']} != CPU "
+                             f"{server_out['cpu']}")
+    labels = sorted({r[3] for rows in server_out["cuda"] for r in rows if r[3]})
+    print(f"app golden server (diarize=True, the trained separator fused, Silero-like VAD): "
+          f"results and speaker labels card == CPU, "
+          f"{[len(rows) for rows in server_out['cuda']]} results, labels {labels}")
+    return flips
+
+
+def _serve_diarized(device: str, guard: FailOnLog) -> list:
+    from realtime_whisper_asr_tpu_torch.models.separation_nn import NeuralSeparator
+    from realtime_whisper_asr_tpu_torch.serving import StreamServer
+
+    asr = golden_asr(device)
+    server = StreamServer(asr, online_chunk_size=0.5, prefix_policy="last", diarize=True,
+                          separator=NeuralSeparator(device=device), clock=lambda: 0.0)
+    if not server.fused_separation or asr._sep_frontend is None:
+        raise AssertionError("app golden server: the trained separator was not fused")
+    pause = np.zeros(int(1.2 * SR), np.float32)
+    audios = [golden_vac_audio(), np.concatenate([golden_audio(1, 3.0), pause,
+                                                  golden_audio(2, 3.0), pause])]
+    sids = [server.create_stream() for _ in audios]
+    out = {sid: [] for sid in sids}
+    for pos in range(0, max(len(a) for a in audios), SR // 2):
+        for sid, audio in zip(sids, audios):
+            if pos < len(audio):
+                server.feed(sid, audio[pos : pos + SR // 2])
+        while server.step():
+            pass
+        for sid in sids:
+            out[sid].extend(server.poll(sid))
+    for sid in sids:
+        out[sid].extend(server.close_stream(sid))
+    if server.group_failures or guard.records:
+        raise AssertionError(f"app golden server on {device}: {server.group_failures} group "
+                             f"failures, {guard.records}")
+    return [[(round(r.begin, 3), round(r.end, 3), r.text, r.speaker) for r in out[sid]]
+            for sid in sids]
+
+
+#: bench.py's scenario 5 (bench.py:128-142) through the port's StreamingApp:
+#: 16 s passes (bench.py's 24 s, cut for time)
+APP_SECONDS = 16
+APP_SCENARIO5 = {"audio_deduplication.enable": False, "skip_detector.enable": False,
+                 "speech_rate_adaptive.enable": False, "vocal_separation.enable": True,
+                 "vocal_separation.method": "neural", "vocal_separation.fuse_encode": True,
+                 "streaming.prefix_policy": "last", "model.quantization": "int8-all"}
+
+
+def _timed(fn, spans: list):
+    """fn, appending each call's host ms to ``spans``."""
+    def call(*args, **kwargs):
+        t0 = time.perf_counter()
+        out = fn(*args, **kwargs)
+        spans.append(1e3 * (time.perf_counter() - t0))
+        return out
+    return call
+
+
+def _peak_bytes(fn) -> int:
+    """Bytes the card's allocator held at its peak during fn() above what it
+    held before."""
+    import torch
+
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    fn()
+    torch.cuda.synchronize()
+    return torch.cuda.max_memory_allocated() - base
+
+
+def phase_app(guard: FailOnLog, smi: str) -> int:
+    """bench.py's scenario 5 through the port's StreamingApp at full width:
+    the configuration names large-v3 (bf16, random weights from seed 0) at
+    ``int8-all``, prefix policy "last", VAC with the Silero-like VAD on the
+    card and the packaged default separator fused into the encode;
+    96-token caps, 4 tokens a second; ``music_backed_speech`` in 1 s chunks
+    fed back to back (the session picks async pipelined ticks). A warm-up
+    pass, then a timed one of ``APP_SECONDS``, K1's launches set to 0 just
+    before it and read just after: they must equal the windows encoded, with
+    no capture and no swallowed exception. Prints the RTF, results and
+    skips, the separation's device ms a window beside the encode's, the
+    frontend's peak memory a row at the 30 s bucket beside what
+    ``_row_bytes`` reserves for it (a breach fails), and a PhaseTimer split
+    of one more (synchronous) pass. -> K1's launches."""
+    import torch
+
+    from realtime_whisper_asr_tpu_torch import serving
+    from realtime_whisper_asr_tpu_torch.app import StreamingApp
+    from realtime_whisper_asr_tpu_torch.config import ConfigManager
+    from realtime_whisper_asr_tpu_torch.io import SimulatedMicStream
+    from realtime_whisper_asr_tpu_torch.models import separation_nn as SEP
+    from realtime_whisper_asr_tpu_torch.ops import logmel
+    from realtime_whisper_asr_tpu_torch.services import PerformanceMonitor
+    from realtime_whisper_asr_tpu_torch.utils.profiling import PhaseTimer
+
+    label = "app scenario 5 large-v3 int8-all"
+    cm = ConfigManager(autoload=False)
+    cm.set("model.size", "large-v3")
+    cm.set("performance.display_interval_s", 1e9)
+    for k, v in APP_SCENARIO5.items():
+        cm.set(k, v)
+    t0 = time.perf_counter()
+    lines = []
+    app = StreamingApp(config=cm, language="en", output=lines.append)
+    asr = app.asr
+    asr.transcribe_kargs.update(max_new_tokens=96, max_total_tokens=96)
+    asr.max_tokens_per_second = 4.0
+    torch.cuda.synchronize()
+    if not app.fused_separation or asr._sep_frontend is None or asr.quantization != "int8-all":
+        raise AssertionError(f"{label}: not the scenario's configuration")
+    print(f"{label}: app built in {time.perf_counter() - t0:.1f} s (random init, int8 "
+          f"quantization, the packaged separator fused, VAD {type(app.processor.vac.prob_fn).__name__})")
+    audio = music_backed_speech(APP_SECONDS)
+    stream = SimulatedMicStream(np.concatenate([audio] * 3))  # warm-up, timed, PhaseTimer
+    t0 = time.perf_counter()
+    app.record_session(stream, chunk_seconds=1.0, max_seconds=APP_SECONDS, until_exhausted=False)
+    torch.cuda.synchronize()
+    print(f"{label}: warm-up pass in {time.perf_counter() - t0:.1f} s")
+    app.processor.init()
+    app.monitor = PerformanceMonitor()
+    loop = asr.decode_loop
+    stats0 = dict(loop.stats)
+    rows = [0]
+    encode_many = asr._encode_many
+
+    def counting(keys, n_samples_list):
+        rows[0] += len(keys)
+        return encode_many(keys, n_samples_list)
+
+    asr._encode_many = counting
+    spans = {"insert_audio_chunk": [], "process_iter": []}
+    for name in spans:
+        setattr(app.processor, name, _timed(getattr(app.processor, name), spans[name]))
+    # ---- the app path, with K1's launch count read around it
+    logmel.logmel_launches = 0
+    t0 = time.perf_counter()
+    stats = app.record_session(stream, chunk_seconds=1.0, max_seconds=APP_SECONDS,
+                               until_exhausted=False)
+    wall = time.perf_counter() - t0
+    launches = logmel.logmel_launches
+    # ----
+    del asr._encode_many, app.processor.insert_audio_chunk, app.processor.process_iter
+    captures = loop.stats["captures"] - stats0["captures"]
+    if guard.records:
+        raise AssertionError(f"{label}: the session swallowed an exception: {guard.records}")
+    if launches == 0 or launches != rows[0] or captures or stats.chunks != APP_SECONDS:
+        raise AssertionError(f"{label}: K1 launched {launches} times for {rows[0]} windows "
+                             f"encoded, {captures} captures, {stats.chunks} chunks")
+    mon = app.monitor.get_status()
+    print(f"{label} on {smi}: RTF {wall / APP_SECONDS:.4f} ({wall:.2f} s for {APP_SECONDS} s of "
+          f"music-backed speech, 1 s chunks back to back, pipeline "
+          f"{app.last_session_pipeline}); results {stats.results}, skips {stats.skipped}, "
+          f"dedup skips {stats.dedup_skipped}; monitor p50 {mon.get('p50_ms')} ms; "
+          f"{rows[0]} windows encoded = K1 launches {launches}; {captures} captures after the "
+          f"warm-up pass")
+    ins, tick = sum(spans["insert_audio_chunk"]), sum(spans["process_iter"])
+    print(f"{label} on {smi}: the session's host time: insert_audio_chunk (the VAD on the card, "
+          f"the ring's prefetch) {ins:.1f} ms ({ins / stats.chunks:.2f} a chunk), process_iter "
+          f"{tick:.1f} ms ({tick / stats.chunks:.2f} a chunk), the rest (app stages, sinks, the "
+          f"final flush) {1e3 * wall - ins - tick:.1f} ms")
+    # the separation's device time a window beside the encode's, at 16 s
+    key = next(iter(asr._buffers))
+    sep, dil = asr._sep_frontend
+    n16 = 16 * SR
+    ring16 = asr._buffers[key][0][:n16]
+    with torch.inference_mode():
+        sep_ms = time_cuda_ms(lambda: SEP.separate_vocals(sep, ring16[None], dil=dil))
+        fused_ms = time_cuda_ms(lambda: asr._encode_many([key], [n16]))
+        asr._sep_frontend = None
+        enc_ms = time_cuda_ms(lambda: asr._encode_many([key], [n16]))
+        asr._sep_frontend = (sep, dil)
+        ring30 = asr._buffers[key][0][: 30 * SR]
+        one = _peak_bytes(lambda: SEP.separate_vocals(sep, ring30[None], dil=dil))
+        four = _peak_bytes(lambda: SEP.separate_vocals(sep, ring30.expand(4, -1), dil=dil))
+    print(f"{label} on {smi}: a 16 s window's separation {sep_ms:.3f} ms device, its encode "
+          f"(K1 and the encoder) {enc_ms:.3f} ms, both fused {fused_ms:.3f} ms (CUDA events, L2 "
+          f"flushed, median of 30)")
+    reserved = SEP.separation_bytes(sep, 30 * SR)
+    cfg = asr.cfg
+    itemsize = asr.model.dtype.itemsize
+    row_on = serving._row_bytes(cfg, False, itemsize, 1, sep)
+    row_off = serving._row_bytes(cfg, False, itemsize, 1)
+    print(f"{label} on {smi}: the frontend's peak at the 30 s bucket {one / 2**20:.1f} MiB for "
+          f"one row, {four / 2**20:.1f} MiB for 4 ({four / 4 / 2**20:.1f} MiB a row); "
+          f"_row_bytes reserves {reserved / 2**20:.1f} MiB a row for it ({row_off / 2**20:.1f} "
+          f"-> {row_on / 2**20:.1f} MiB)")
+    if one > reserved or four > 4 * reserved or row_on - row_off != reserved:
+        raise AssertionError(f"{label}: the separation's transient exceeds what _row_bytes "
+                             f"reserves")
+    # a tick's phases: synchronous ticks (the timer waits at each boundary)
+    app.processor.init()
+    app._pipeline_auto = False
+    app.online.set_pipeline(False)
+    asr.phase_timer = PhaseTimer()
+    app.record_session(stream, chunk_seconds=1.0, max_seconds=APP_SECONDS, until_exhausted=False)
+    report = asr.phase_timer.report()
+    asr.phase_timer = None
+    app.shutdown()
+    if guard.records:
+        raise AssertionError(f"{label}: the session swallowed an exception: {guard.records}")
+    print(f"{label} on {smi}: PhaseTimer split of a synchronous tick (mean ms over "
+          f"{report['decode']['count']} ticks; encode includes the separation): "
+          + ", ".join(f"{k} {v['mean_ms']}" for k, v in report.items()))
+    return launches
+
+
 def _bound(nbytes: float, ops: float, peak_ops: float) -> tuple[float, str]:
     """(ms, what bounds it): the larger of bytes over the memory rate and
     operations over the peak rate of their type."""
@@ -2992,6 +3548,8 @@ def main() -> int:
     del golden_asr
     near_ties = run("golden_quant", phase_golden_quant)  # printed again at the end
     run("vad", phase_vad)
+    run("separation", phase_separation, smi)
+    near_ties += run("app_golden", phase_app_golden, guard, smi)
     launches = {}
     for tier in (None, "int4"):
         launches[tier] = run(f"full_width {tier or 'bf16'}", phase_full_width, guard, tier)
@@ -3007,12 +3565,16 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     run("beam", phase_beam, guard, smi)
+    gc.collect()
+    torch.cuda.empty_cache()
+    app_launches = run("app", phase_app, guard, smi)
     chain_launches = run("microbench", phase_microbench)
     src = "realtime_whisper_asr_tpu_torch/csrc/"
     entries = []
     for name, source, replaces, count, rows, main_row in (
+        # K1: the large-v3 main path's launches and the app path's
         ("logmel", src + "logmel.cu", "realtime_whisper_asr_tpu/ops/logmel.py:76",
-         launches[None]["logmel"], logmel_rows, ("16 s", 128)),  # the offline clip's bucket
+         launches[None]["logmel"] + app_launches, logmel_rows, ("16 s", 128)),
         # the main path calls int4_linear (bf16, with bias): its row stands for
         # K2; the error is the largest over int4_matmul's and int4_linear's rows
         ("int4_linear", src + "int4_matmul.cu", "realtime_whisper_asr_tpu/ops/int4_matmul.py:44",

@@ -31,6 +31,15 @@ multi-stream tick the server (``serving.py``) runs: B streams' new audio
 and aux rows in one copy, each applied to its own ring, log-mel once per
 row, one encode of B rows and one batched decode (``decode.greedy_decode_batch``,
 or ``beam.beam_decode_batch``).
+
+``set_separation_frontend`` fuses a trained vocal-separation net
+(``models/separation_nn.py``) into the encode: every encoded window, the
+padded bucket with its zero tail, is separated on the device before K1, as
+the JAX package does in its fused log-mel and encode program.
+``detect_language`` encodes its window unseparated, as there.
+``adaptive_params`` (``pipeline.stretch.AdaptiveWhisperParams``), when set,
+adds its beam size and temperature for its ``rate_class`` to each window's
+decode options.
 """
 
 from __future__ import annotations
@@ -47,6 +56,7 @@ import torch
 from numpy.lib.stride_tricks import sliding_window_view
 
 from realtime_whisper_asr_tpu_torch.device import resolve_device
+from realtime_whisper_asr_tpu_torch.models import separation_nn as SEP
 from realtime_whisper_asr_tpu_torch.models.whisper import beam as BM
 from realtime_whisper_asr_tpu_torch.models.whisper import decode as D
 from realtime_whisper_asr_tpu_torch.models.whisper import quant as Q
@@ -254,6 +264,10 @@ class TorchWhisperASR:
         #: None disables. Rides in the aux bundle as the exact cap, so it
         #: adds no loop shape.
         self.max_tokens_per_second: Optional[float] = None
+        self.adaptive_params = None  # optional AdaptiveWhisperParams (pipeline.stretch)
+        #: the fused separation frontend: (the net's params in the port's
+        #: layout on the device, its dilations) or None
+        self._sep_frontend = None
         self._vad_flag = False  # protocol parity; VAD is the VAC processor's job
         #: the decode loop of every window: on the card its CUDA graphs, one
         #: per loop shape, captured at a shape's first window
@@ -477,15 +491,36 @@ class TorchWhisperASR:
     def _encode_many(self, keys, n_samples_list) -> torch.Tensor:
         """B streams' windows in one encode -> (B, frames/2, d): every row
         at the group's largest window bucket (each ring is zero past its
-        audio), K1 once per row, one ``model.encode`` of the stack."""
+        audio), separated as one batch when the frontend is set, K1 once
+        per row, one ``model.encode`` of the stack."""
         nb = max(self._window_bucket(n) for n in n_samples_list)
         self.counters["encode_flops"] += len(keys) * encoder_flops(self.cfg, nb // (2 * 160))
-        mels = [log_mel_spectrogram(self._buffers[k][0][:nb], n_mels=self.cfg.n_mels)
-                for k in keys]
+        windows = [self._buffers[k][0][:nb] for k in keys]
+        if self._sep_frontend is not None:
+            sep, dil = self._sep_frontend
+            windows = SEP.separate_vocals(sep, torch.stack(windows), dil=dil).unbind(0)
+        mels = [log_mel_spectrogram(w, n_mels=self.cfg.n_mels) for w in windows]
         return self.model.encode(torch.stack(mels).to(self.model.dtype))
 
+    def set_separation_frontend(self, sep_params) -> None:
+        """Fuse a trained spectral-mask separator into the encode: every
+        encoded window (its bucket, zero tail included) is separated on the
+        device before its log-mel, as the JAX package separates inside its
+        fused log-mel and encode program. ``sep_params``: the net's params in
+        the JAX layout (``NeuralSeparator.params``); ``None`` removes the
+        frontend. Host stages that read raw audio (the VAD, the dedup
+        features) see the unseparated signal in this mode."""
+        if sep_params is None:
+            self._sep_frontend = None
+            return
+        dil, _ = SEP.arch_of(sep_params)
+        self._sep_frontend = (SEP.params_from_jax(sep_params, self.device),
+                              tuple(tuple(d) for d in dil))
+
     def _logmel_encode(self, audio: torch.Tensor) -> torch.Tensor:
-        """(n,) f32 window on the device -> encoder output (1, n/320, d)."""
+        """(n,) f32 window on the device -> encoder output (1, n/320, d),
+        never separated (``detect_language``'s encode, as in the JAX
+        package)."""
         mel = log_mel_spectrogram(audio, n_mels=self.cfg.n_mels)
         return self.model.encode(mel.to(self.model.dtype)[None])
 
@@ -499,6 +534,11 @@ class TorchWhisperASR:
 
     def _make_opts(self) -> D.DecodeOptions:
         kargs = dict(self.transcribe_kargs)
+        if self.adaptive_params is not None:
+            # speech-rate-adaptive decode params (reference asr_components.py:
+            # 267-275 wires AdaptiveWhisperParams the same way)
+            kargs.update(self.adaptive_params.get_transcribe_kwargs(
+                getattr(self.adaptive_params, "rate_class", "normal")))
         return D.DecodeOptions(
             task=self.task,
             language=self.original_language,

@@ -17,9 +17,12 @@ Port of ``realtime_whisper_asr_tpu/serving.py``. Design:
   ``max_consecutive_sheds`` so the monitor's window refreshes.
 
 With ``beam_size`` > 1 (the ASR's, or its ``transcribe_kargs``'s) a group's
-tick is B streams' beam searches in one loop. Diarization and the separation
-frontend are not ported yet: ``diarize=True`` and a ``separator`` raise
-``NotImplementedError``.
+tick is B streams' beam searches in one loop. ``diarize=True`` gives each
+stream a speaker tracker over one shared embedder (``models/speaker.py``),
+fed at the VAC's utterance ends, and labels each result. A ``separator``
+that is a trained neural net is fused into the shared ASR's encode
+(``asr.set_separation_frontend``: each batch's windows separated on the
+card before K1); any other separates each fed chunk on the caller's thread.
 """
 
 from __future__ import annotations
@@ -54,8 +57,10 @@ class StreamResult:
     begin: float
     end: float
     text: str
-    #: speaker label; None until diarization is ported (ROADMAP queue 1
-    #: item 13). The transports already carry it.
+    #: speaker label ("S1", ...) when the server runs with diarize=True:
+    #: mid-utterance results carry a provisional classification of the
+    #: utterance in progress (SpeakerTurnController.live_label), utterance
+    #: finals the assignment made at the VAD boundary
     speaker: Optional[str] = None
 
 
@@ -75,6 +80,9 @@ class _Stream:
         self.audio_since_tick = 0.0  # seconds drained but not yet transcribed
         self.language: Optional[str] = None
         self.inflight = False  # a dispatched tick awaits finalize
+        self.diarizer = None  # per-stream SpeakerTurnController when diarize=True
+        self._prev_vac_status: Optional[str] = None
+        self._prev_utt_ends = 0  # consumed VAC end-event count (diarizer)
 
 
 #: the share of the card's memory the cap leaves to the caching allocator's
@@ -90,7 +98,8 @@ FIXED_BYTES = 3 * 2**30
 
 
 def _hbm_safe_batch(cfg, param_bytes: int, hbm_bytes: Optional[int], kv_quant: bool = False,
-                    itemsize: int = 2, beam_size: int = 1) -> Optional[int]:
+                    itemsize: int = 2, beam_size: int = 1,
+                    separation: Optional[dict] = None) -> Optional[int]:
     """Largest per-dispatch decode batch whose working set fits device
     memory, or None when the device's memory size is unknown (the CPU).
 
@@ -100,14 +109,16 @@ def _hbm_safe_batch(cfg, param_bytes: int, hbm_bytes: Optional[int], kv_quant: b
     less ``HOLD_BACK``, the weights and ``FIXED_BYTES``) is split over two
     groups of ``_row_bytes`` a row. ``itemsize``: the bytes of the model's
     dtype; ``kv_quant``: the ``int8-kv`` tier's int8 caches; ``beam_size``:
-    the beams of a stream."""
+    the beams of a stream; ``separation``: the fused separation frontend's
+    params, when set."""
     if not hbm_bytes or cfg is None:
         return None
     budget = int(hbm_bytes * (1 - HOLD_BACK)) - int(param_bytes) - FIXED_BYTES
-    return max(1, budget // (2 * _row_bytes(cfg, kv_quant, itemsize, beam_size)))
+    return max(1, budget // (2 * _row_bytes(cfg, kv_quant, itemsize, beam_size, separation)))
 
 
-def _row_bytes(cfg, kv_quant: bool = False, itemsize: int = 2, beam_size: int = 1) -> int:
+def _row_bytes(cfg, kv_quant: bool = False, itemsize: int = 2, beam_size: int = 1,
+               separation: Optional[dict] = None) -> int:
     """What one batch row (one stream) costs the card, from what the port
     allocates:
 
@@ -125,7 +136,12 @@ def _row_bytes(cfg, kv_quant: bool = False, itemsize: int = 2, beam_size: int = 
     - plus the encoder's score transient of one row at the 30 s bucket: the
       f32 scores and their scaled copy and the softmax weights cast to the
       model's dtype, ``n_audio_head × n_audio_ctx²`` elements each (one
-      layer's at a time).
+      layer's at a time);
+    - plus, with the fused separation frontend (``separation``: its params),
+      the separation's transient of one row at the 30 s bucket
+      (``separation_nn.separation_bytes``: the widest conv's input and
+      output, 1,876 frames × 513 bins each channel, beside the spectrum),
+      since a batch's rows are separated together.
 
     ``tests/test_torch_serving.py`` holds the state part equal to
     ``decode._state_bytes`` of states allocated at that shape."""
@@ -142,14 +158,19 @@ def _row_bytes(cfg, kv_quant: bool = False, itemsize: int = 2, beam_size: int = 
         scalars = k * ctx * 8 + k * k * ctx * 4 + k * (1 + 4 + 8) + 8 + 8
     state_row = kv + capture + scalars
     scores = cfg.n_audio_head * cfg.n_audio_ctx**2 * (2 * 4 + itemsize)
-    return MAX_GRAPHS * state_row + scores
+    sep = 0
+    if separation is not None:
+        from realtime_whisper_asr_tpu_torch.models.separation_nn import separation_bytes
+
+        sep = separation_bytes(separation, cfg.n_audio_ctx * 2 * 160)
+    return MAX_GRAPHS * state_row + scores + sep
 
 
 def _device_batch_cap(asr) -> Optional[int]:
     """``_hbm_safe_batch`` for a model on the card: its parameter and
-    buffer bytes (the int8/int4 weights are buffers), its dtype, cache kind
-    and beams, and the card's memory; None for a backend without a model or
-    one on the CPU."""
+    buffer bytes (the int8/int4 weights are buffers), its dtype, cache kind,
+    beams and separation frontend, and the card's memory; None for a
+    backend without a model or one on the CPU."""
     model = getattr(asr, "model", None)
     cfg = getattr(asr, "cfg", None)
     device = getattr(asr, "device", None)
@@ -161,7 +182,13 @@ def _device_batch_cap(asr) -> Optional[int]:
     itemsize = dtype.itemsize if isinstance(dtype, torch.dtype) else 2
     return _hbm_safe_batch(cfg, nbytes, torch.cuda.get_device_properties(device).total_memory,
                            kv_quant=bool(getattr(model, "kv_quant", False)), itemsize=itemsize,
-                           beam_size=_beam_size(asr))
+                           beam_size=_beam_size(asr), separation=_separation_params(asr))
+
+
+def _separation_params(asr) -> Optional[dict]:
+    """The params of the ASR's fused separation frontend, or None."""
+    frontend = getattr(asr, "_sep_frontend", None)
+    return frontend[0] if frontend is not None else None
 
 
 def _beam_size(asr) -> int:
@@ -197,11 +224,24 @@ class StreamServer:
         separator=None,
         clock: Callable[[], float] = time.monotonic,
     ):
-        if diarize:
-            raise NotImplementedError("diarization is not ported yet (ROADMAP queue 1 item 13)")
-        if separator is not None:
-            raise NotImplementedError("the separation frontend is not ported yet "
-                                      "(ROADMAP queue 1 item 13)")
+        #: the vocal-separation frontend. A trained neural separator fuses
+        #: into the shared ASR's encode (every batch's windows separated on
+        #: the card before K1, no host cost per stream) and feed() passes
+        #: audio through; any other separator runs in feed(), on the
+        #: caller's thread, outside the locks (one shared instance: the
+        #: separators keep no state but their stats). Fused before the
+        #: memory cap below, which counts the frontend's transient.
+        self.fused_separation = False
+        if (
+            separator is not None
+            and getattr(separator, "name", "") == "neural"
+            and getattr(separator, "trained", False)
+            and hasattr(asr, "set_separation_frontend")
+        ):
+            asr.set_separation_frontend(separator.params)
+            self.fused_separation = True
+            separator = None
+        self.separator = separator
         #: memory-derived ceiling on the per-dispatch batch (None: unknown
         #: memory). A larger max_batch is clamped, not honored-then-OOM: the
         #: scheduler still serves every stream by splitting each round into
@@ -230,6 +270,12 @@ class StreamServer:
         if vad_factory is None and use_vad:
             vad_factory = _silero_factory(getattr(asr, "device", "cuda"))
         self.vad_factory = vad_factory
+        # one shared (stateless) speaker embedder; per-stream trackers
+        self._speaker_embedder = None
+        if diarize and use_vad:
+            from realtime_whisper_asr_tpu_torch.models.speaker import SpeakerEmbedder
+
+            self._speaker_embedder = SpeakerEmbedder()
         self.streams: dict[int, _Stream] = {}
         self.monitor = PerformanceMonitor()
         self._ids = itertools.count(1)
@@ -272,6 +318,15 @@ class StreamServer:
         online.stream_key = sid
         stream = _Stream(sid, processor, SkipDetector(clock=self.clock), self.clock)
         stream.language = language
+        if self._speaker_embedder is not None:
+            from realtime_whisper_asr_tpu_torch.models.speaker import (
+                SpeakerTracker,
+                SpeakerTurnController,
+            )
+
+            stream.diarizer = SpeakerTurnController(
+                SpeakerTracker(embedder=self._speaker_embedder)
+            )
         with self._lock:
             self.streams[sid] = stream
             self._rr.append(sid)
@@ -285,6 +340,10 @@ class StreamServer:
         return s
 
     def feed(self, stream_id: int, chunk: np.ndarray) -> None:
+        if self.separator is not None:
+            # outside the lock: separation is the expensive part of feed and
+            # must not serialize other connections' feeds or step()'s drain
+            chunk = self.separator.separate(np.asarray(chunk, np.float32))
         with self._lock:
             s = self._get_open(stream_id)
             s.pending_audio.append(np.asarray(chunk, np.float32))
@@ -358,6 +417,23 @@ class StreamServer:
                 s.buffered_samples -= len(chunk)
             s.audio_since_tick += len(chunk) / SR
             s.processor.insert_audio_chunk(chunk)
+            if s.diarizer is not None:
+                status = getattr(s.processor, "status", None)
+                s.diarizer.observe_chunk(chunk, voiced=(status == "voice"))
+                ends = getattr(s.processor, "utterance_ends", None)
+                if ends is not None:
+                    # count VAC end events: a before/after status compare
+                    # misses an end+start pair inside one chunk. A counter
+                    # below the watermark means the processor was re-inited
+                    # (error reset): resync without inventing events.
+                    if ends < s._prev_utt_ends:
+                        s._prev_utt_ends = ends
+                    for _ in range(ends - s._prev_utt_ends):
+                        s.diarizer.on_utterance_end()
+                    s._prev_utt_ends = ends
+                elif s._prev_vac_status == "voice" and status == "nonvoice":
+                    s.diarizer.on_utterance_end()
+                s._prev_vac_status = status
 
     def _emit(self, s: _Stream, beg, end, text) -> None:
         if not text:
@@ -365,8 +441,12 @@ class StreamServer:
         skip, _ = s.skip_detector.should_skip(text, self.clock())
         if skip:
             return
+        # live_label: the utterance in progress's provisional speaker, exact
+        # at utterance finals (on_utterance_end runs in the drain, before
+        # the final text is emitted)
+        speaker = s.diarizer.live_label() if s.diarizer is not None else None
         with self._lock:
-            s.results.append(StreamResult(s.sid, beg, end, text))
+            s.results.append(StreamResult(s.sid, beg, end, text, speaker=speaker))
 
     def _collect_ready(self) -> list[_Stream]:
         """Pick up to max_batch ready streams in round-robin order."""
@@ -588,6 +668,9 @@ class StreamServer:
                 "group_failures": self.group_failures,
                 "max_batch": self.max_batch,
                 "device_batch_cap": self.device_batch_cap,
+                "separator": (self.separator.get_stats() if self.separator
+                              else {"fused": True} if self.fused_separation
+                              else None),
                 "monitor": self.monitor.get_status(),
                 "per_stream": {
                     sid: {"ticks": s.ticks, "shed": s.skipped_ticks,

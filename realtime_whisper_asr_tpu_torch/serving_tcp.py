@@ -131,28 +131,35 @@ def _parser(description: str, port: int) -> argparse.ArgumentParser:
     p.add_argument("--prefix-policy", default="last", choices=["agree2", "last"])
     p.add_argument("--device", default="cuda", help="the model's device (cpu: the plain path)")
     p.add_argument("--diarize", action="store_true",
-                   help="not ported yet (ROADMAP queue 1 item 13): raises")
+                   help="per-stream speaker-turn tracking (labels in results)")
     p.add_argument("--separation", default="none", choices=["none", "filter", "neural"],
-                   help="anything but none is not ported yet (ROADMAP queue 1 item 13): raises")
+                   help="vocal-separation frontend: neural fuses the trained net into the "
+                        "encode on the model's device; filter band-passes every fed chunk "
+                        "on the host, on the connection's thread")
+    p.add_argument("--separation-variant", default="small", choices=["default", "small"],
+                   help="neural variant; small (~2.6x fewer MACs) is the many-stream "
+                        "recommendation")
     return p
 
 
 def _stream_server(args):
     """A StreamServer over ``TorchWhisperASR`` in bf16 on the card, as
     ``args`` ask (``--checkpoint`` loads a directory, else ``--model``'s
-    random weights); raises for what the port does not have yet."""
+    random weights), with speaker labels under ``--diarize`` and the
+    ``--separation`` frontend."""
     import torch
 
     from realtime_whisper_asr_tpu_torch.asr import TorchWhisperASR
+    from realtime_whisper_asr_tpu_torch.pipeline.separation import create_separator
     from realtime_whisper_asr_tpu_torch.serving import StreamServer
 
-    if args.diarize or args.separation != "none":
-        raise NotImplementedError("--diarize and --separation are not ported yet "
-                                  "(ROADMAP queue 1 item 13)")
     asr = TorchWhisperASR(model_size=args.model, language=args.language, dtype=torch.bfloat16,
                           device=args.device, quantization=args.quantization,
                           checkpoint_dir=args.checkpoint)
-    return StreamServer(asr, prefix_policy=args.prefix_policy)
+    separator = create_separator(args.separation, use_device=False,
+                                 variant=args.separation_variant, device=args.device)
+    return StreamServer(asr, prefix_policy=args.prefix_policy, diarize=args.diarize,
+                        separator=separator)
 
 
 def main(argv=None) -> int:  # pragma: no cover - thin CLI

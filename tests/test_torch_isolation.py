@@ -7,7 +7,15 @@
   ``pipeline``, ``services``) alone. The name check is exact: the port's
   own name starts with the JAX package's.
 - Entry points default to CUDA and raise on a host without it; the
-  servers' CLIs too, and they raise for flags of slices not ported yet.
+  servers' CLIs too. Their ``--diarize`` and ``--separation`` flags build
+  a server with speaker labels and the separation frontend (they raised
+  ``NotImplementedError`` before the application path was ported).
+- The application path's modules (``app``, ``io``, ``config``, the
+  separation, dedup, speech-rate and speaker stages) import no ``jax`` on
+  their own; ``StreamingApp()`` and ``NeuralSeparator()`` raise without
+  CUDA; the device paths of the DSP ops, the separators, the dedup gate and
+  the time stretch have no ``try`` that could fall back to the CPU or to
+  unseparated audio.
 - The kernel wrappers (log-mel, packed-int4 matmul, matmul chain), the int8
   product and the quantized modules' dispatch have no ``try``/``except`` that
   could fall back from a kernel to its plain version; nor have the VAD and
@@ -175,14 +183,16 @@ def test_serving_modules_import_no_jax():
 @pytest.mark.parametrize("args,error,match", [
     ([], RuntimeError, "CUDA"),
     (["--checkpoint", "ckpt"], FileNotFoundError, "ckpt"),
-    (["--diarize"], NotImplementedError, "item 13"),
-    (["--separation", "filter"], NotImplementedError, "item 13"),
+    (["--diarize"], RuntimeError, "CUDA"),
+    (["--separation", "filter"], RuntimeError, "CUDA"),
 ], ids=["no-cuda", "checkpoint", "diarize", "separation"])
 @pytest.mark.parametrize("module", ["serving_tcp", "serving_ws"])
 def test_serving_mains_refuse(monkeypatch, module, args, error, match):
     """The servers' CLIs build the ASR on the card (and raise without CUDA),
-    raise for a checkpoint directory that is not there, and for the flags
-    of slices not ported yet."""
+    and raise for a checkpoint directory that is not there. ``--diarize``
+    and ``--separation`` no longer refuse: they reach the ASR's build, which
+    raises without CUDA (``test_serving_mains_build_diarize_and_separation``
+    runs them on the CPU)."""
     import importlib
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
@@ -230,3 +240,109 @@ def test_server_has_no_fallback():
             continue
         assert "self.group_failures += 1" in text and "self._reset_group(group)" in text
         assert "asr" not in text.replace("batched", "")
+
+
+@pytest.mark.parametrize("separation", ["neural", "filter"])
+@pytest.mark.parametrize("module", ["serving_tcp", "serving_ws"])
+def test_serving_mains_build_diarize_and_separation(module, separation):
+    """``--diarize --separation ...`` on the CPU: a server whose streams get
+    speaker trackers, with the trained net fused into the ASR's encode
+    (``neural``) or the host band-pass on every fed chunk (``filter``)."""
+    import importlib
+
+    import numpy as np
+
+    from realtime_whisper_asr_tpu_torch import serving_tcp
+
+    mod = importlib.import_module("realtime_whisper_asr_tpu_torch." + module)
+    assert mod._stream_server is serving_tcp._stream_server
+    args = serving_tcp._parser("x", 0).parse_args(
+        ["--model", "test-tiny", "--device", "cpu", "--quantization", "none", "--diarize",
+         "--separation", separation])
+    server = mod._stream_server(args)
+    assert server.fused_separation == (separation == "neural")
+    if separation == "neural":
+        assert server.separator is None and server.asr._sep_frontend is not None
+        assert server.get_stats()["separator"] == {"fused": True}
+    else:
+        assert server.separator.name == "filter" and not server.separator.use_device
+    sid = server.create_stream()
+    assert server.streams[sid].diarizer is not None
+    server.feed(sid, np.zeros(16000, np.float32))
+    server.close_stream(sid)
+    assert server.group_failures == 0
+
+
+_IMPORT_APP = r"""
+import importlib, sys
+for name in ("app", "io", "config", "ops.dsp", "ops.features", "models.separation_nn",
+             "models.speaker", "pipeline.separation", "pipeline.dedup_audio",
+             "pipeline.speech_rate", "pipeline.stretch", "services.translation"):
+    importlib.import_module("realtime_whisper_asr_tpu_torch." + name)
+bad = sorted(m for m in sys.modules
+             if m == "jax" or m.startswith("jax.") or m == "jaxlib" or m.startswith("jaxlib.")
+             or m == "realtime_whisper_asr_tpu" or m.startswith("realtime_whisper_asr_tpu.")
+             or m == "requests")
+sys.exit(1 if bad else 0)
+"""
+
+
+def test_app_path_modules_import_no_jax():
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    proc = subprocess.run([sys.executable, "-c", _IMPORT_APP], cwd=ROOT, env=env,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+def test_app_path_entry_points_refuse_missing_cuda(monkeypatch):
+    from realtime_whisper_asr_tpu_torch.app import StreamingApp
+    from realtime_whisper_asr_tpu_torch.models.separation_nn import NeuralSeparator
+    from realtime_whisper_asr_tpu_torch.pipeline import (
+        AudioDeduplicator,
+        BandpassSeparator,
+        SpeechRateAudioProcessor,
+    )
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for make in (StreamingApp, NeuralSeparator, BandpassSeparator, SpeechRateAudioProcessor,
+                 lambda: AudioDeduplicator(use_device=True)):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            make()
+    # the host paths need no card
+    assert NeuralSeparator(use_device=False).device is None
+    assert BandpassSeparator(use_device=False).device is None
+    assert AudioDeduplicator().device is None
+
+
+def _tries(path, names=None):
+    with open(path) as f:
+        tree = ast.parse(f.read())
+    if names is None:
+        return [n for n in ast.walk(tree) if isinstance(n, ast.Try)]
+    nodes = [n for n in ast.walk(tree) if getattr(n, "name", None) in names]
+    assert len(nodes) == len(names), [n.name for n in nodes]
+    return [t for node in nodes for t in ast.walk(node) if isinstance(t, ast.Try)]
+
+
+@pytest.mark.parametrize("module", ["ops.dsp", "ops.features", "models.separation_nn",
+                                    "pipeline.dedup_audio", "pipeline.stretch"])
+def test_app_path_device_code_has_no_fallback(module):
+    import importlib
+
+    mod = importlib.import_module("realtime_whisper_asr_tpu_torch." + module)
+    assert not _tries(mod.__file__)
+
+
+def test_separators_have_no_fallback():
+    """pipeline/separation.py: no handler in the separators' device paths,
+    the factory or the windowing; the one ``try`` is DemucsSeparator's
+    import of the optional ``demucs`` package."""
+    from realtime_whisper_asr_tpu_torch.pipeline import separation
+
+    with open(separation.__file__) as f:
+        tree = ast.parse(f.read())
+    owners = [fn.name for fn in ast.walk(tree) if isinstance(fn, ast.FunctionDef)
+              for node in ast.walk(fn) if isinstance(node, ast.Try)]
+    assert owners == ["__init__"]
+    demucs = next(n for n in ast.walk(tree) if getattr(n, "name", None) == "DemucsSeparator")
+    assert len([n for n in ast.walk(demucs) if isinstance(n, ast.Try)]) == 1

@@ -7,10 +7,11 @@ and ``tests/test_streaming.py``'s: isolation, round-robin, shedding and
 recovery, close and flush, the staged pending utterance, batching and
 language groups, the pipelined overlap, no double tick, concurrent churn,
 group failures, the TCP transport over a real socket, and the memory-safe
-batch with the same numbers (beam states too). Diarization and the
-separation frontend are not ported: there the port's server raises
-``NotImplementedError``; a ``beam_size`` of 2 is served as the JAX server
-serves it.
+batch with the same numbers (beam states too). A host separator runs on
+every fed chunk and ``diarize=True`` gives every VAC stream a speaker
+tracker in both servers (``tests/test_torch_speaker.py`` holds the labels
+equal); a ``beam_size`` of 2 is served as the JAX server serves it. The
+port's memory cap counts the fused separation frontend's transient.
 """
 
 import socket
@@ -327,14 +328,27 @@ def test_close_stream_flushes_staged_pending_utterance(pkg):
 
 
 def test_diarize_and_separation(pkg):
-    """The JAX server takes both (tests/test_serving.py holds what they
-    do); the port's raises ``NotImplementedError`` naming the queue item.
-    Both servers serve a backend whose ``beam_size`` is 2 alike."""
+    """Both servers run a host separator on every fed chunk and give each
+    VAC stream of a ``diarize=True`` server its own speaker tracker over one
+    shared embedder; both serve a backend whose ``beam_size`` is 2 alike."""
     words = [(0.5, 0.9, " one"), (1.0, 1.4, " two"), (2.0, 2.4, " three")]
+    sep = _RecordingSeparator()
+    server = pkg.StreamServer(PerStreamFakeASR({1: words}), use_vad=False,
+                              online_chunk_size=0.5, separator=sep)
+    sid = server.create_stream()
+    _feed_steps(server, [sid], [(t, t + 1.0) for t in range(4)])
+    assert server.get_stats()["separator"]["processed"] == 4
+    server.close_stream(sid)
+    assert sep.stats["processed"] == 4 and not server.fused_separation
+    server = pkg.StreamServer(PerStreamFakeASR({1: words, 2: words}), use_vad=True,
+                              vad_factory=lambda: ScriptedProbs([(0.0, 30.0)]), diarize=True)
+    a, b = server.create_stream(), server.create_stream()
+    trackers = [server.streams[sid].diarizer.tracker for sid in (a, b)]
+    assert trackers[0] is not trackers[1]
+    assert trackers[0].embedder is trackers[1].embedder
+    for sid in (a, b):
+        server.close_stream(sid)
     if pkg.name == "torch":
-        for kw in ({"diarize": True}, {"separator": _RecordingSeparator()}):
-            with pytest.raises(NotImplementedError, match="item 13"):
-                pkg.StreamServer(PerStreamFakeASR({1: words}), use_vad=False, **kw)
         texts = []
         for serving, _ in PACKAGES.values():
             asr = PerStreamFakeASR({1: words})
@@ -345,14 +359,24 @@ def test_diarize_and_separation(pkg):
             _feed_steps(server, [sid], [(t, t + 1.0) for t in range(4)], outs)
             texts.append("".join(r.text for r in outs[sid] + server.close_stream(sid)))
         assert texts[0] == texts[1] and "one" in texts[1] and "three" in texts[1], texts
-        return
-    sep = _RecordingSeparator()
-    server = pkg.StreamServer(PerStreamFakeASR({1: words}), use_vad=False,
-                              online_chunk_size=0.5, separator=sep)
-    sid = server.create_stream()
-    _feed_steps(server, [sid], [(t, t + 1.0) for t in range(4)])
-    server.close_stream(sid)
-    assert sep.stats["processed"] == 4
+
+
+def test_row_bytes_count_the_fused_separation():
+    """With the fused frontend a row also holds its separation's transient
+    at the 30 s bucket: the widest conv's input and output planes beside the
+    spectrum, 1,876 frames x 513 bins each (123 MB a 32-channel layer)."""
+    from realtime_whisper_asr_tpu_torch.models import separation_nn as SEP
+
+    cfg = get_config("large-v3")
+    params = SEP.params_from_jax(dict(np.load(SEP.VARIANT_WEIGHTS["default"])), "cpu")
+    frames = 1 + cfg.n_audio_ctx * 2 * 160 // SEP.HOP
+    assert frames == 1876
+    widest = 24 + 32  # enc2: 24 channels in, 32 out
+    assert SEP.separation_bytes(params, 480000) == frames * 513 * 4 * (widest + 4)
+    assert (PS._row_bytes(cfg, separation=params) - PS._row_bytes(cfg)
+            == SEP.separation_bytes(params, 480000))
+    assert (PS._hbm_safe_batch(cfg, 2 * 10**9, 80 * 2**30, separation=params)
+            <= PS._hbm_safe_batch(cfg, 2 * 10**9, 80 * 2**30))
 
 
 @pytest.mark.parametrize("name", ["large-v3", "tiny"])
