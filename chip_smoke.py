@@ -132,6 +132,26 @@ Phases, each failing the run with a non-zero exit:
      and skips, K1 launches = windows encoded, no capture, the separation's
      device ms a window beside the encode's, the frontend's peak memory a
      row beside ``_row_bytes``' reserve for it, a PhaseTimer split.
+ 16. the command line and training: ``phase_cli`` runs the port's CLI as a
+     user does: ``detect`` names the card and recommends from its memory,
+     ``transcribe`` of golden clip 0 on the golden weights (a native
+     checkpoint) prints the golden row's text and its ``--output-format
+     srt`` bytes equal the ``--cpu`` run's, ``stream --wav`` runs one
+     session (K1's launches counted); ``phase_train`` holds the optimizer on
+     the card against the CPU bit for bit, runs three
+     ``tools/finetune.py`` steps of the golden test-tiny weights on the card
+     against the same three on the CPU (losses within 1e-4 relative,
+     parameters within 1e-6 but for at most 4 elements), holds the batch's
+     K1 mel against the plain version on the card, checks a save, load and
+     continue on the card bit-equal to the uninterrupted run, then the
+     full-width cell: large-v3 f32 from seed 0, 2 rows x 16 s x 64 tokens,
+     the finetune recipe, a warm-up and 3 timed steps on one batch (loss per
+     step, seconds a step, tokens a second, hand-counted FLOPs over the f32
+     peak, peak memory beside the prediction, K1 = 2 launches a step) and a
+     profiled step's split (log-mel / forward + backward / optimizer, GEMM
+     share, busy share); ``phase_train_vad`` runs ``tools/train_vad.py``'s
+     loop: its first step on the card against the CPU's, then 20 steps
+     whose loss falls.
 Prints each phase's seconds, one ``{"kernels": [...]}`` line, then as the
 last line
 ``{"ok": true, "device": {...}}``. Exits non-zero without a result when CUDA
@@ -3515,6 +3535,394 @@ def phase_golden_quant() -> list[str]:
     return flips
 
 
+
+# ---------------------------------------------------------------- CLI, training
+
+
+def _run_cli(argv: list) -> str:
+    """``cli.main(argv)``'s standard output; a non-zero status fails."""
+    import io
+
+    from realtime_whisper_asr_tpu_torch import cli
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = cli.main(argv)
+    logging.captureWarnings(False)  # the CLI routes warnings into logging
+    if rc != 0:
+        raise AssertionError(f"cli {' '.join(argv)} exited {rc}: {buf.getvalue()[-500:]}")
+    return buf.getvalue()
+
+
+def golden_checkpoint(path: str) -> str:
+    """The golden test-tiny weights written as the port's native checkpoint."""
+    from realtime_whisper_asr_tpu_torch.models.whisper.checkpoint import save_checkpoint
+    from realtime_whisper_asr_tpu_torch.models.whisper.config import get_config
+    from realtime_whisper_asr_tpu_torch.models.whisper.convert import load_flat_npz
+
+    save_checkpoint(path, load_flat_npz(os.path.join(GOLDEN, "params.npz")),
+                    get_config("test-tiny"))
+    return path
+
+
+def write_manifest(d: str, clips: list) -> str:
+    """A JSONL manifest of ``speechy_audio`` WAVs: ``clips`` is a list of
+    (seconds, word count); clip i says words w<i>, w<i+1>, ..."""
+    from realtime_whisper_asr_tpu_torch.io import write_wav
+
+    path = os.path.join(d, "manifest.jsonl")
+    with open(path, "w") as f:
+        for i, (seconds, words) in enumerate(clips):
+            wav = os.path.join(d, f"clip{i}.wav")
+            write_wav(wav, speechy_audio(seconds, seed=i))
+            text = " ".join(f"w{i + j}" for j in range(words))
+            f.write(json.dumps({"wav": wav, "text": text, "language": "en"}) + "\n")
+    return path
+
+
+def phase_cli(smi: str) -> int:
+    """The port's CLI as a user runs it, on the card: ``detect`` names the
+    card and recommends from its memory; ``transcribe`` of golden clip 0 on
+    the golden weights (a native checkpoint) prints the golden row's text in
+    its first 8 segments, and its ``--output-format srt`` bytes equal the
+    ``--cpu`` run's; ``stream --wav`` runs one session. Returns K1's
+    launches in the card's transcribe and stream."""
+    import tempfile
+
+    import torch
+
+    from realtime_whisper_asr_tpu_torch.io import write_wav
+    from realtime_whisper_asr_tpu_torch.ops import logmel
+
+    report = json.loads(_run_cli(["detect"]))
+    hw, rec = report["hardware"], report["recommendation"]
+    props = torch.cuda.get_device_properties(0)
+    if (hw["platform"], hw["device_kind"], hw["hbm_bytes"], hw["n_devices"]) != (
+            "gpu", torch.cuda.get_device_name(0), props.total_memory, torch.cuda.device_count()):
+        raise AssertionError(f"cli detect: {hw}")
+    if rec["model"] != "large-v3":
+        raise AssertionError(f"cli detect recommends {rec} on {hw['hbm_bytes']} bytes")
+    print(f"cli detect: {hw['device_kind']} x{hw['n_devices']}, compute capability "
+          f"{hw['compute_capability']}, {hw['hbm_bytes'] / 2**30:.1f} GiB -> {rec['model']} "
+          f"{rec['dtype']} ({rec['reason']}); {smi}")
+    with open(os.path.join(GOLDEN, "transcripts.json")) as f:
+        golden_text = json.load(f)["clips"][0]["offline_text"]
+    with tempfile.TemporaryDirectory() as d:
+        ckpt = golden_checkpoint(os.path.join(d, "ckpt"))
+        wav = os.path.join(d, "golden0.wav")
+        write_wav(wav, golden_audio(0))
+        common = ["--dtype", "float32", "--checkpoint", ckpt, "--config",
+                  os.path.join(d, "config.json")]
+        logmel.logmel_launches = 0
+        listing = _run_cli(["transcribe", wav] + common)
+        launches = logmel.logmel_launches
+        texts = [ln.split("] ", 1)[1] for ln in listing.splitlines() if "-->" in ln]
+        if "".join(texts[:8]) != golden_text:
+            raise AssertionError(f"cli transcribe: {texts[:8]} is not the golden {golden_text!r}")
+        srt = {dev: _run_cli(["transcribe", wav, "--output-format", "srt"] + common + extra)
+               for dev, extra in (("cuda", []), ("cpu", ["--cpu"]))}
+        if srt["cuda"].encode() != srt["cpu"].encode():
+            card, cpu = srt["cuda"].splitlines(), srt["cpu"].splitlines()
+            first = next(i for i, (a, b) in enumerate(zip(card + [""], cpu + [""])) if a != b)
+            raise AssertionError(f"cli transcribe srt: card line {first} {card[first:first + 1]} "
+                                 f"!= CPU {cpu[first:first + 1]}")
+        logmel.logmel_launches = 0
+        out = _run_cli(["stream", "--wav", wav, "--chunk-seconds", "1.0",
+                        "--quantization", "none"] + common)
+        stream_launches = logmel.logmel_launches
+        sessions = [ln for ln in out.splitlines() if ln.startswith("session:")]
+        if len(sessions) != 1 or stream_launches == 0 or launches == 0:
+            raise AssertionError(f"cli stream: {sessions}, K1 launches {stream_launches}")
+    print(f"cli transcribe: golden clip 0 on the card, {len(texts)} segments, the first 8 the "
+          f"golden text {golden_text!r}; srt card == CPU ({len(srt['cuda'].encode())} bytes); "
+          f"K1 launches {launches}")
+    print(f"cli stream --wav: {sessions[0]}; K1 launches {stream_launches}")
+    return launches + stream_launches
+
+
+#: the full-width training cell: large-v3 f32 from seed 0, the 16 s bucket,
+#: 2 rows, the 64-token bucket, 1 warm-up + 3 timed steps on one batch
+TRAIN_STEPS = 4
+TRAIN_CLIPS = ((12.0, 45), (14.5, 50))
+
+
+def _recipe(lr: float, warmup: int):
+    """tools/finetune.py's optimizer (decay over 10,000 steps)."""
+    from realtime_whisper_asr_tpu_torch.train import optim as O
+
+    return O.chain(O.clip_by_global_norm(1.0),
+                   O.adamw(O.warmup_cosine_decay_schedule(0.0, lr, warmup, 10_000),
+                           weight_decay=0.01))
+
+
+def check_optimizer_card_equals_cpu() -> None:
+    """The finetune recipe's optimizer (``train/optim.py``) on the card
+    against the CPU, on identical leaves (large-v3 shapes) and gradients:
+    3 steps with the clip keeping the gradients (norm under 1), parameters
+    bit for bit; then the global norm of gradients above 1, card vs CPU,
+    within 1 ulp (both sum in f64, each in its own order)."""
+    import torch
+
+    from realtime_whisper_asr_tpu_torch.train import optim as O
+
+    rng = np.random.default_rng(0)
+    shapes = {"fc1.weight": (5120, 1280), "fc1.bias": (5120,), "ln.weight": (1280,),
+              "conv.weight": (1280, 128, 3)}
+    init = {k: rng.standard_normal(v).astype(np.float32) for k, v in shapes.items()}
+    params = {dev: {k: torch.from_numpy(v).to(dev) for k, v in init.items()}
+              for dev in ("cuda", "cpu")}
+    opts = {dev: _recipe(1e-3, 1) for dev in params}
+    states = {dev: opts[dev].init(params[dev]) for dev in params}
+    for _ in range(3):
+        grads = {k: (rng.standard_normal(v) * 1e-4).astype(np.float32)
+                 for k, v in shapes.items()}
+        for dev in params:
+            u, states[dev] = opts[dev].update({k: torch.from_numpy(g).to(dev)
+                                               for k, g in grads.items()},
+                                              states[dev], params[dev])
+            O.apply_updates(params[dev], u)
+    unequal = [k for k in shapes if not torch.equal(params["cuda"][k].cpu(), params["cpu"][k])]
+    big = {k: torch.from_numpy(rng.standard_normal(v).astype(np.float32)) for k, v in shapes.items()}
+    norms = [O.global_norm({k: v.to(dev) for k, v in big.items()}).cpu().numpy()
+             for dev in ("cuda", "cpu")]
+    ulps = abs(int(norms[0].view(np.int32)) - int(norms[1].view(np.int32)))
+    print(f"optimizer card vs CPU: 3 recipe steps on {sum(map(np.prod, shapes.values())):,} "
+          f"parameters, {len(shapes) - len(unequal)} of {len(shapes)} leaves bit-equal; global "
+          f"norm {float(norms[0]):.7g} vs {float(norms[1]):.7g} ({ulps} ulp)")
+    if unequal or ulps > 1:
+        raise AssertionError(f"optimizer card vs CPU: {unequal} differ, norm {ulps} ulp apart")
+
+
+def _train_tiny(d: str) -> int:
+    """Three finetune steps of the golden test-tiny weights on the card
+    against the same three on the CPU (the CPU tests' tolerances), K1 of a
+    batch against the plain version on the card, and a save / load /
+    continue on the card bit-equal to the uninterrupted run. Returns K1's
+    launches of the card's runs."""
+    import torch
+
+    from realtime_whisper_asr_tpu_torch.models.whisper.checkpoint import (
+        load_train_state,
+        save_train_state,
+    )
+    from realtime_whisper_asr_tpu_torch.models.whisper.config import get_config
+    from realtime_whisper_asr_tpu_torch.models.whisper.tokenizer import MockTokenizer
+    from realtime_whisper_asr_tpu_torch.ops import logmel
+    from realtime_whisper_asr_tpu_torch.tools.finetune import finetune, parse_args
+    from realtime_whisper_asr_tpu_torch.train import optim as O
+    from realtime_whisper_asr_tpu_torch.train.data import DataPipeline, prepare_batch
+    from realtime_whisper_asr_tpu_torch.train.train_step import make_train_state, make_train_step
+
+    cfg = get_config("test-tiny")
+    ckpt = golden_checkpoint(os.path.join(d, "ckpt"))
+    man = write_manifest(d, [(1.0 + 0.25 * i, 3 + i) for i in range(6)])
+    lr, warmup = 1e-3, 1
+    runs, launches = {}, 0
+    for dev in ("cuda", "cpu"):
+        logmel.logmel_launches = 0
+        runs[dev] = finetune(parse_args([
+            "--manifest", man, "--init-checkpoint", ckpt, "--out", os.path.join(d, dev),
+            "--batch-size", "2", "--lr", str(lr), "--warmup-steps", str(warmup),
+            "--save-every", "0", "--log-every", "10"] + (["--cpu"] if dev == "cpu" else [])))
+        launches += logmel.logmel_launches if dev == "cuda" else 0
+    card, cpu = runs["cuda"], runs["cpu"]
+    rel = max(abs(a - b) / abs(b) for a, b in zip(card["losses"], cpu["losses"]))
+    schedule = O.warmup_cosine_decay_schedule(0.0, lr, warmup, 10_000)
+    lr_sum = sum(schedule(c) for c in range(card["steps"]))
+    off, worst = 0, 0.0
+    for k, v in card["state"].params.items():
+        diff = (v.detach().cpu() - cpu["state"].params[k].detach()).abs()
+        off += int((diff > 1e-6).sum())
+        worst = max(worst, float(diff.max()))
+    if (card["steps"] != 3 or cpu["steps"] != 3 or rel > 1e-4 or off > 4
+            or worst > 2 * lr_sum + 1e-6):
+        raise AssertionError(f"train test-tiny card vs CPU: losses {card['losses']} / "
+                             f"{cpu['losses']}, {off} elements above 1e-6, largest {worst:.3g}")
+    print(f"train test-tiny f32, 3 finetune steps (golden weights, lr {lr}, warm-up {warmup}): "
+          f"losses card {[round(x, 6) for x in card['losses']]} CPU "
+          f"{[round(x, 6) for x in cpu['losses']]} (max rel {rel:.3g}, tolerance 1e-4); params "
+          f"max |card - CPU| {worst:.3g}, {off} elements above 1e-6 (tolerance: 4, each within "
+          f"2·Σlr = {2 * lr_sum:.3g}); K1 launches {launches}")
+
+    batches = list(DataPipeline(man, cfg, MockTokenizer(cfg), batch_size=2, seed=0).epochs(1))
+    b = prepare_batch(batches[0], cfg, "cuda")
+    plain = torch.stack([logmel.log_mel_spectrogram_plain(torch.from_numpy(a).cuda(), cfg.n_mels)
+                         for a in batches[0]["audio"]])
+    mel, ref = b["mel"].cpu().numpy(), plain.cpu().numpy()
+    for row in range(len(mel)):
+        check_logmel_close(mel[row], ref[row], f"train batch K1 vs plain, row {row}")
+    print(f"train batch K1 vs plain on the card: {mel.shape}, max |Δ| "
+          f"{float(np.abs(mel - ref).max()):.3g} (K1's tolerance)")
+
+    opt = _recipe(lr, warmup)
+    step, _ = make_train_step(cfg, opt, "cuda")
+    logmel.logmel_launches = 0
+    prepared = [prepare_batch(x, cfg, "cuda") for x in batches]
+    launches += logmel.logmel_launches
+
+    def fresh():
+        return make_train_state(cfg, torch.Generator("cuda").manual_seed(0), opt, device="cuda")[0]
+
+    straight = fresh()
+    for x in prepared:
+        straight, _ = step(straight, x)
+    state = fresh()
+    for x in prepared[:2]:
+        state, _ = step(state, x)
+    save_train_state(os.path.join(d, "ts"), state)
+    resumed, _ = step(load_train_state(os.path.join(d, "ts"), fresh()), prepared[2])
+    unequal = [k for k, v in straight.params.items() if not torch.equal(v, resumed.params[k])]
+    if unequal or resumed.step != 3:
+        raise AssertionError(f"train resume on the card: {len(unequal)} tensors differ "
+                             f"({unequal[:3]}), step {resumed.step}")
+    print(f"train resume on the card: 2 steps, save, load, 1 step == 3 steps, all "
+          f"{len(straight.params)} tensors bit-equal")
+    return launches
+
+
+def profile_train_step(state, opt, cfg, batch: dict, step_s: float) -> dict:
+    """One more step of the cell, its parts timed by CUDA events (the
+    batch's log-mel, forward + backward, the optimizer) and traced: kernel
+    ms by kind (GEMM: cuBLAS and CUTLASS kernels; the rest), the card's busy
+    share of the step's wall time and the top kernels."""
+    import torch
+
+    from realtime_whisper_asr_tpu_torch.train import optim as O
+    from realtime_whisper_asr_tpu_torch.train.data import prepare_batch
+    from realtime_whisper_asr_tpu_torch.train.train_step import loss_and_grads
+
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with torch.profiler.profile(activities=acts) as prof:
+        ev[0].record()
+        b = prepare_batch(batch, cfg, "cuda")
+        ev[1].record()
+        _, grads = loss_and_grads(state.params, cfg, b)
+        ev[2].record()
+        updates, _ = opt.update(grads, state.opt_state, state.params)
+        O.apply_updates(state.params, updates)
+        ev[3].record()
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    parts = {name: ev[i].elapsed_time(ev[i + 1]) for i, name in
+             enumerate(("log-mel ms", "forward+backward ms", "optimizer ms"))}
+    events = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
+    if not events:
+        return dict(parts, kernels="not measured (no kernels traced)")
+    total = sum(e.self_device_time_total for e in events) / 1e3
+    gemm = sum(e.self_device_time_total for e in events
+               if any(w in e.key.lower() for w in ("gemm", "cutlass", "xmma"))) / 1e3
+    top = sorted(events, key=lambda e: -e.self_device_time_total)[:6]
+    return dict(parts, **{
+        "kernels ms": total, "GEMM ms": gemm, "GEMM share": f"{gemm / total:.0%}",
+        "busy": f"{total / 1e3 / wall:.0%} of {wall:.3f} s traced ({step_s:.3f} s untraced)",
+        "top": ", ".join(f"{e.key[:60]} {e.self_device_time_total / 1e3:.1f} ms" for e in top)})
+
+
+def phase_train(smi: str) -> int:
+    """The optimizer card vs CPU, the training path on the card
+    (``_train_tiny``), then the full-width
+    cell: large-v3 f32 from seed 0, 2 rows of the 16 s bucket with the
+    64-token bucket, the finetune recipe (lr 1e-4, no warm-up, so step 1
+    trains), 1 warm-up step and 3 timed ones on the same batch, each step's
+    batch through ``prepare_batch`` (2 K1 launches). Prints the loss per
+    step (near ln 51,866 at random weights, falling), seconds a step, tokens
+    a second, the hand-counted FLOPs a step over the f32 peak, peak memory
+    beside the prediction, K1's launches (= 2 a step), then one profiled
+    step's split (``profile_train_step``). Returns K1's launches on the
+    training path."""
+    import gc
+    import tempfile
+
+    import torch
+
+    from realtime_whisper_asr_tpu_torch.models.whisper.config import get_config
+    from realtime_whisper_asr_tpu_torch.models.whisper.tokenizer import MockTokenizer
+    from realtime_whisper_asr_tpu_torch.ops import logmel
+    from realtime_whisper_asr_tpu_torch.train.data import DataPipeline, prepare_batch
+    from realtime_whisper_asr_tpu_torch.train.train_step import (
+        make_train_state,
+        make_train_step,
+        step_flops,
+    )
+
+    check_optimizer_card_equals_cpu()
+    with tempfile.TemporaryDirectory() as d:
+        launches = _train_tiny(d)
+        cfg = get_config("large-v3")
+        man = write_manifest(d, list(TRAIN_CLIPS))
+        (batch,) = DataPipeline(man, cfg, MockTokenizer(cfg), batch_size=2, seed=0).epochs(1)
+    b, n = batch["audio"].shape
+    s = batch["tokens_in"].shape[1]
+    if (b, n, s) != (2, 16 * SR, 64):
+        raise AssertionError(f"train cell batch {batch['audio'].shape}, {s} tokens")
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    opt = _recipe(1e-4, 0)
+    state, opt = make_train_state(cfg, torch.Generator("cuda").manual_seed(0), opt, device="cuda")
+    step, _ = make_train_step(cfg, opt, "cuda")
+    n_params = sum(v.numel() for v in state.params.values())
+    logmel.logmel_launches = 0
+    losses, seconds = [], []
+    for _ in range(TRAIN_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, loss = step(state, prepare_batch(batch, cfg, "cuda"))
+        losses.append(float(loss))  # reads the loss: waits for the step
+        seconds.append(time.perf_counter() - t0)
+    peak = torch.cuda.max_memory_allocated() - base
+    split = profile_train_step(state, opt, cfg, batch, sum(seconds[1:]) / (TRAIN_STEPS - 1))
+    k1 = logmel.logmel_launches
+    launches += k1
+    del state, step, opt
+    gc.collect()
+    torch.cuda.empty_cache()
+    flops = step_flops(cfg, b, n // 160, s)
+    sec = float(np.median(seconds[1:]))
+    state_gb = 4 * 4 * n_params / 1e9
+    print(f"train large-v3 f32 (seed 0, {n_params:,} parameters), batch {b} x 16 s x {s} tokens, "
+          f"lr 1e-4: losses {[round(x, 4) for x in losses]} (ln 51866 = {math.log(51866):.4f}); "
+          f"step s {[round(x, 4) for x in seconds]}, timed median {sec:.4f} s; "
+          f"{b * s / sec:.1f} tokens/s ({int(batch['mask'].sum())} supervised a step), "
+          f"{b * 16 / sec:.2f} audio s/s; {flops / 1e12:.3f} TFLOP a step (hand count, 4 "
+          f"forwards) = {flops / sec / 1e12:.2f} TFLOP/s, {100 * flops / sec / PEAK_F32_FLOPS:.1f} "
+          f"% of the f32 peak 67 TFLOP/s; peak memory {peak / 1e9:.2f} GB above the start "
+          f"(predicted: params, grads, 2 moments 4 x {state_gb / 4:.2f} = {state_gb:.1f} GB + "
+          f"~5 GB of recomputed activations a row = ~{state_gb + 5 * b:.0f} GB); K1 launches "
+          f"{k1} (predicted {2 * (TRAIN_STEPS + 1)}, 2 a step with the profiled one); {smi}")
+    if split:
+        print("train large-v3 step split: " + "; ".join(
+            f"{k} {v:.2f}" if isinstance(v, float) else f"{k} {v}" for k, v in split.items()))
+    if (k1 != 2 * (TRAIN_STEPS + 1) or not all(math.isfinite(x) for x in losses)
+            or abs(losses[0] - math.log(51866)) > 1.0 or not losses[-1] < losses[0]):
+        raise AssertionError(f"train large-v3: losses {losses}, K1 launches {k1}")
+    return launches
+
+
+def phase_train_vad() -> None:
+    """``tools/train_vad.py``'s loop: the first step's loss on the card
+    against the CPU's from the same seeded init and batch, then 20 steps on
+    the card at the tool's defaults (16 x 4 s, lr 2e-3): the loss falls."""
+    from realtime_whisper_asr_tpu_torch.models.vad.silero_like import SileroLikeNet
+    from realtime_whisper_asr_tpu_torch.tools import train_vad
+
+    first = train_vad.train(SileroLikeNet("cpu", seed=0), 1, 16, 4.0, 2e-3, 0)
+    t0 = time.perf_counter()
+    card = train_vad.train(SileroLikeNet("cuda", seed=0), 20, 16, 4.0, 2e-3, 0, log_every=10)
+    sec = time.perf_counter() - t0
+    rel = abs(card[0] - first[0]) / abs(first[0])
+    print(f"train_vad: 20 steps on the card, losses {card[0]:.5f} -> {card[-1]:.5f} "
+          f"(min {min(card):.5f}); first step card vs CPU {card[0]:.7f} / {first[0]:.7f} "
+          f"(rel {rel:.3g}, tolerance 1e-5); {sec / 20 * 1e3:.1f} ms a step with the host's "
+          f"batch synthesis")
+    if rel > 1e-5 or not card[-1] < card[0]:
+        raise AssertionError(f"train_vad: card {card}, CPU first step {first}")
+
+
 def main() -> int:
     import gc
 
@@ -3568,13 +3976,20 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     app_launches = run("app", phase_app, guard, smi)
+    gc.collect()
+    torch.cuda.empty_cache()
+    cli_launches = run("cli", phase_cli, smi)
+    train_launches = run("train", phase_train, smi)
+    run("train_vad", phase_train_vad)
     chain_launches = run("microbench", phase_microbench)
     src = "realtime_whisper_asr_tpu_torch/csrc/"
     entries = []
     for name, source, replaces, count, rows, main_row in (
-        # K1: the large-v3 main path's launches and the app path's
+        # K1: the large-v3 main path's launches, the app path's, the CLI's
+        # and the training path's
         ("logmel", src + "logmel.cu", "realtime_whisper_asr_tpu/ops/logmel.py:76",
-         launches[None]["logmel"] + app_launches, logmel_rows, ("16 s", 128)),
+         launches[None]["logmel"] + app_launches + cli_launches + train_launches, logmel_rows,
+         ("16 s", 128)),
         # the main path calls int4_linear (bf16, with bias): its row stands for
         # K2; the error is the largest over int4_matmul's and int4_linear's rows
         ("int4_linear", src + "int4_matmul.cu", "realtime_whisper_asr_tpu/ops/int4_matmul.py:44",

@@ -43,3 +43,20 @@ def no_tf32_matmul():
         yield
     finally:
         torch.backends.cuda.matmul.allow_tf32 = prev
+
+
+@contextlib.contextmanager
+def exact_kernels():
+    """IEEE f32 cuBLAS matmuls and cuDNN convolutions and RNNs, and
+    deterministic cuDNN algorithms, inside this block: the training steps
+    run their forward AND backward in it (a backward op reads the flags when
+    it runs, after a forward block has closed), so an f32 step computes the
+    JAX package's function and a resumed run repeats an uninterrupted one
+    bit for bit."""
+    with no_tf32_matmul(), no_tf32_cudnn():
+        prev = torch.backends.cudnn.deterministic
+        torch.backends.cudnn.deterministic = True
+        try:
+            yield
+        finally:
+            torch.backends.cudnn.deterministic = prev

@@ -9,6 +9,9 @@ state)`` runs a batch of 512-sample frames with the carried state (the last
 two projected frames and the LSTM's h and c) in one call, as the JAX
 package's ``vad_scan`` does; ``SileroLikeVAD`` is the streaming adapter the
 VAC loop calls, ``prob_fn(frames (N, 512) numpy) -> (N,) numpy``.
+``SileroLikeNet.sequence_logits`` is the JAX package's
+``vad_sequence_logits`` batched: (B, T, 512) frames from a zero state to
+(B, T) logits, the training forward (``tools/train_vad.py``).
 
 The trained weights ship with the port (``weights/silero_like.npz``, the JAX
 package's file in its layout) and load by default; ``params_from_jax`` maps
@@ -23,6 +26,7 @@ import os
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from realtime_whisper_asr_tpu_torch.device import no_tf32_cudnn, resolve_device
@@ -55,6 +59,27 @@ def params_from_jax(params: dict) -> dict:
         "lstm.bias_hh_l0": torch.zeros(4 * HIDDEN),
         "head.weight": t(np.asarray(params["head_w"]).T),
         "head.bias": t(params["head_b"]),
+    }
+
+
+def params_to_jax(state: dict) -> dict:
+    """``SileroLikeNet``'s state dict -> the JAX package's VAD pytree (numpy
+    f32 leaves), the layout of the packaged npz; the LSTM's two biases
+    summed into ``lstm_b``."""
+
+    def t(name: str) -> np.ndarray:
+        return state[name].detach().to("cpu", torch.float32).numpy()
+
+    return {
+        "proj_w": t("proj.weight").T.copy(),
+        "proj_b": t("proj.bias"),
+        "conv_w": t("conv.weight").transpose(2, 1, 0).copy(),
+        "conv_b": t("conv.bias"),
+        "lstm_wx": t("lstm.weight_ih_l0").T.copy(),
+        "lstm_wh": t("lstm.weight_hh_l0").T.copy(),
+        "lstm_b": t("lstm.bias_ih_l0") + t("lstm.bias_hh_l0"),
+        "head_w": t("head.weight").T.copy(),
+        "head_b": t("head.bias"),
     }
 
 
@@ -110,6 +135,21 @@ class SileroLikeNet(nn.Module):
             out, (h, c) = self.lstm(y[:, None], (h[None, None], c[None, None]))
             probs = torch.sigmoid(self.head(out[:, 0]))[:, 0]
         return probs, (xt[-(CONV_K - 1):], h[0, 0], c[0, 0])
+
+    def sequence_logits(self, frames: torch.Tensor) -> torch.Tensor:
+        """(B, T, 512) f32 frames -> (B, T) pre-sigmoid logits from a zero
+        state: the JAX package's ``vad_sequence_logits`` (under
+        ``jax.vmap``), the same network as ``forward``. Differentiable; a
+        training step runs it and its backward under
+        ``device.exact_kernels``, and keeps ``lstm.bias_hh_l0`` frozen at 0
+        (``params_from_jax`` puts the JAX tree's one LSTM bias in
+        ``bias_ih_l0``: training both would move the summed bias twice)."""
+        spec = torch.fft.rfft(frames * self.window, dim=-1).abs()
+        x = torch.relu(self.proj(torch.log1p(spec * 8.0)))  # (B, T, ENC)
+        xt = F.pad(x.transpose(1, 2), (CONV_K - 1, 0))  # causal context, zero
+        y = torch.relu(self.conv(xt)).permute(2, 0, 1)  # (T, B, ENC)
+        out, _ = self.lstm(y)  # zero (h, c)
+        return self.head(out)[..., 0].t()
 
 
 class SileroLikeVAD:

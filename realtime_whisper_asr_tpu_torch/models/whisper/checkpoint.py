@@ -13,8 +13,14 @@ so the port has a format of its own:
 
 A directory with ``rtwa_config.json`` and orbax's ``params/`` but no
 ``rtwa_torch.safetensors`` is the JAX package's native checkpoint: loading
-it raises and names the conversion. The sharded and train-state functions
-of the JAX module wait for the port's ``parallel`` and ``train`` packages.
+it raises and names the conversion.
+
+Train states (``save_train_state`` / ``load_train_state``, the JAX module's
+orbax ones in the port's format): ``train_state.safetensors`` holds every
+tensor of a ``train.TrainState`` (the params, the optimizer's moments) under
+its path in the state's tree, and ``train_state.json`` the rest (the step,
+the optimizer's counts). The sharded loader waits for the port's
+``parallel`` package.
 """
 
 from __future__ import annotations
@@ -22,6 +28,8 @@ from __future__ import annotations
 import dataclasses
 import json
 import os
+
+import torch
 
 from realtime_whisper_asr_tpu_torch.models.whisper.config import WhisperConfig
 from realtime_whisper_asr_tpu_torch.models.whisper.safetensors_io import (
@@ -79,3 +87,73 @@ def load_checkpoint(path: str, dtype=None) -> tuple[WhisperConfig, dict]:
     state = read_safetensors(state_file)
     return cfg, (state if dtype is None else _cast_floats(state, dtype))
 
+
+# ---------------------------------------------------------------------------
+# train states (resumable fine-tuning runs)
+# ---------------------------------------------------------------------------
+
+_TRAIN_TENSORS = "train_state.safetensors"
+_TRAIN_META = "train_state.json"
+
+
+def _leaves(node, path: str, tensors: dict, meta: dict) -> None:
+    """Walk a train state (tuples, NamedTuples, dataclasses, dicts; tensor
+    and int leaves): tensors into ``tensors``, ints into ``meta``, by path."""
+    if isinstance(node, torch.Tensor):
+        tensors[path] = node
+    elif isinstance(node, int):
+        meta[path] = node
+    elif isinstance(node, dict):
+        for k, v in node.items():
+            _leaves(v, f"{path}/{k}", tensors, meta)
+    elif dataclasses.is_dataclass(node):
+        for f in dataclasses.fields(node):
+            _leaves(getattr(node, f.name), f"{path}/{f.name}", tensors, meta)
+    elif isinstance(node, tuple):
+        fields = getattr(node, "_fields", None)
+        for k, v in zip(range(len(node)) if fields is None else fields, node):
+            _leaves(v, f"{path}/{k}", tensors, meta)
+    else:
+        raise TypeError(f"train state leaf {path}: {type(node).__name__}")
+
+
+def save_train_state(path: str, state) -> int:
+    """Persist a ``train.TrainState`` (params + optimizer moments and
+    counts + step) under ``path``; returns the tensor file's bytes."""
+    tensors, meta = {}, {}
+    _leaves(state, "", tensors, meta)
+    os.makedirs(path, exist_ok=True)
+    with open(os.path.join(path, _TRAIN_META), "w") as f:
+        json.dump(meta, f, indent=1)
+    return write_safetensors(os.path.join(path, _TRAIN_TENSORS), tensors)
+
+
+def _restore(node, path: str, tensors: dict, meta: dict):
+    if isinstance(node, torch.Tensor):
+        with torch.no_grad():
+            node.copy_(tensors[path])
+        return node
+    if isinstance(node, int):
+        return meta[path]
+    if isinstance(node, dict):
+        return {k: _restore(v, f"{path}/{k}", tensors, meta) for k, v in node.items()}
+    if dataclasses.is_dataclass(node):
+        return dataclasses.replace(node, **{
+            f.name: _restore(getattr(node, f.name), f"{path}/{f.name}", tensors, meta)
+            for f in dataclasses.fields(node)})
+    fields = getattr(node, "_fields", None)  # a NamedTuple's, else a plain tuple
+    values = [_restore(v, f"{path}/{k}", tensors, meta)
+              for k, v in zip(range(len(node)) if fields is None else fields, node)]
+    return tuple(values) if fields is None else type(node)(*values)
+
+
+def load_train_state(path: str, template_state):
+    """Resume a training run: restore into a freshly built template
+    (``train.make_train_state`` with the same optimizer), tensor by tensor
+    in place, so every leaf keeps the template's device, dtype and
+    ``requires_grad``; the counts and the step from the JSON. A leaf the
+    file lacks raises ``KeyError``."""
+    with open(os.path.join(path, _TRAIN_META)) as f:
+        meta = json.load(f)
+    tensors = read_safetensors(os.path.join(path, _TRAIN_TENSORS))
+    return _restore(template_state, "", tensors, meta)

@@ -650,6 +650,11 @@ class Whisper(nn.Module):
                                         alignment_mask, beam_ancestry)
         return self.logits(x[:, 0]), (None if xattn is None else xattn[:, 0])
 
+    def forward(self, mel: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
+        """The training forward: ``decode_full`` of ``tokens`` (B, T) over
+        ``encode(mel)`` -> logits (B, T, V) f32 (``train.train_step``)."""
+        return self.decode_full(tokens, self.encode(mel))
+
     def decode_full(self, tokens: torch.Tensor, xa: torch.Tensor) -> torch.Tensor:
         """Teacher-forced decoder, the JAX package's ``decode_full``: tokens
         (B, T) from position 0, xa (B, audio_ctx, d) -> logits (B, T, V) f32,

@@ -23,6 +23,13 @@
   (``ops/threefry.py``) and the beam search (``beam.py``) have neither a
   handler nor a branch on the device's type. The server's handlers only
   count a failed group and reset it.
+- The CLI, evaluation and training modules import neither ``jax`` nor
+  ``optax`` nor ``orbax``; the CLI's computing commands exit with status 2
+  without CUDA unless given ``--cpu``; ``make_train_state``,
+  ``make_train_step``, ``prepare_batch`` and the finetune, train_vad and
+  run_eval mains raise without CUDA unless asked for the CPU;
+  ``prepare_batch`` reaches the log-mel wrapper only (no path to the plain
+  version for a CUDA row), and the training code has no handler.
 """
 
 import ast
@@ -346,3 +353,93 @@ def test_separators_have_no_fallback():
     assert owners == ["__init__"]
     demucs = next(n for n in ast.walk(tree) if getattr(n, "name", None) == "DemucsSeparator")
     assert len([n for n in ast.walk(demucs) if isinstance(n, ast.Try)]) == 1
+
+
+_IMPORT_TRAIN_CLI = r"""
+import importlib, sys
+for name in ("cli", "eval", "utils.hardware", "utils.log_filter", "io.subtitles", "train",
+             "train.optim", "train.train_step", "train.data", "tools.finetune",
+             "tools.train_vad", "tools.run_eval"):
+    importlib.import_module("realtime_whisper_asr_tpu_torch." + name)
+bad = sorted(m for m in sys.modules
+             if m.split(".")[0] in ("jax", "jaxlib", "optax", "orbax")
+             or m == "realtime_whisper_asr_tpu" or m.startswith("realtime_whisper_asr_tpu."))
+print(bad)
+sys.exit(1 if bad else 0)
+"""
+
+
+def test_cli_eval_and_training_modules_import_no_jax_optax_orbax():
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    proc = subprocess.run([sys.executable, "-c", _IMPORT_TRAIN_CLI], cwd=ROOT, env=env,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+@pytest.mark.parametrize("argv", [
+    ["transcribe", "a.wav", "--model", "test-tiny"],
+    ["stream", "--model", "test-tiny", "--wav", "a.wav"],
+    ["separate", "a.wav"],
+    ["wizard"],
+], ids=["transcribe", "stream", "separate", "wizard"])
+def test_cli_commands_refuse_missing_cuda_without_cpu_flag(monkeypatch, capsys, argv):
+    """A command that computes exits with status 2 and the device
+    message before it reads a file or builds a model; ``detect`` and
+    ``devices`` compute nothing and run."""
+    from realtime_whisper_asr_tpu_torch import cli
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    assert cli.main(argv) == 2
+    err = capsys.readouterr().err
+    assert "CUDA is not available" in err and "--cpu" in err
+    assert cli.main(["detect"]) == 0
+
+
+def test_training_entry_points_refuse_missing_cuda(monkeypatch, tmp_path):
+    import numpy as np
+
+    from realtime_whisper_asr_tpu_torch.tools import finetune, run_eval, train_vad
+    from realtime_whisper_asr_tpu_torch.train import data, train_step
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = get_config("test-tiny")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        train_step.make_train_state(cfg, torch.Generator())
+    with pytest.raises(RuntimeError, match="CUDA"):
+        train_step.make_train_step(cfg)
+    batch = {"audio": np.zeros((1, 16000), np.float32), "mask": np.ones((1, 4), np.float32),
+             "tokens_in": np.zeros((1, 4), np.int32), "tokens_out": np.zeros((1, 4), np.int32)}
+    with pytest.raises(RuntimeError, match="CUDA"):
+        data.prepare_batch(batch, cfg)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        finetune.main(["--manifest", "m.jsonl", "--out", str(tmp_path)])
+    with pytest.raises(RuntimeError, match="CUDA"):
+        train_vad.main(["--steps", "1", "--out", str(tmp_path / "v.npz")])
+    with pytest.raises(RuntimeError, match="CUDA"):
+        run_eval.main(["--out", str(tmp_path / "e.json")])
+
+
+def test_prepare_batch_has_no_path_to_the_plain_logmel():
+    """``prepare_batch`` calls the log-mel wrapper only: no reference to the
+    plain version, no handler, no branch on a device type, so a CUDA row
+    launches K1 (the wrapper itself has no fallback either)."""
+    import inspect
+
+    from realtime_whisper_asr_tpu_torch.train import data
+
+    src = inspect.getsource(data.prepare_batch)
+    tree = ast.parse(src)
+    calls = {ast.unparse(n.func) for n in ast.walk(tree) if isinstance(n, ast.Call)}
+    assert "log_mel_spectrogram" in calls
+    assert "_plain" not in src and "_log10_mel" not in src
+    assert not [n for n in ast.walk(tree) if isinstance(n, ast.Try)]
+    assert not [n for n in ast.walk(tree) if isinstance(n, ast.Attribute) and n.attr == "type"]
+
+
+@pytest.mark.parametrize("module", ["train.optim", "train.train_step", "tools.finetune",
+                                    "tools.train_vad"])
+def test_training_code_has_no_fallback(module):
+    import importlib
+
+    mod = importlib.import_module("realtime_whisper_asr_tpu_torch." + module)
+    assert not _tries(mod.__file__)
