@@ -152,6 +152,20 @@ Phases, each failing the run with a non-zero exit:
      share, busy share); ``phase_train_vad`` runs ``tools/train_vad.py``'s
      loop: its first step on the card against the CPU's, then 20 steps
      whose loss falls.
+ 17. the parallel path (``phase_parallel``), one card as a world of one over
+     NCCL (mesh 1 x 1, one pipeline stage), every collective run at size 1:
+     the large-v3 ``int8-all`` checkpoint read by ``load_checkpoint_sharded``
+     bit-equal to ``load_checkpoint``; its ``shard_model`` decode of a 16 s
+     window (32-token cap, the collectives captured in the loop's graphs)
+     with prefill logits and packed result bit-equal to the unsharded
+     model's, kernel ms a step beside it; the full-width training cell's two
+     steps through ``make_sharded_train_step``, plain and
+     sequence-parallel, bit-equal to ``make_train_step``'s in both losses and
+     every tensor (seconds a step, peak memory), one 1-stage 2-microbatch
+     ``make_pp_train_step`` step's loss within 1e-5 relative; the sharded
+     test-tiny train state's resume bit-equal; ``tools/finetune.py --mesh
+     1x1`` under ``torch.distributed.run --nproc-per-node 1`` exiting 0
+     with a checkpoint.
 Prints each phase's seconds, one ``{"kernels": [...]}`` line, then as the
 last line
 ``{"ok": true, "device": {...}}``. Exits non-zero without a result when CUDA
@@ -3923,6 +3937,288 @@ def phase_train_vad() -> None:
         raise AssertionError(f"train_vad: card {card}, CPU first step {first}")
 
 
+def _parallel_decode(smi: str, model_size: str, device: str, mesh, d: str) -> int:
+    """The tensor-parallel decode at 1 rank: the unsharded ASR's
+    ``int8-all`` model saved in the native format, read back by
+    ``load_checkpoint_sharded`` (bit-equal to ``load_checkpoint``), built by
+    ``shard_model``; one 16 s window's K1 mel encoded by both, the prefill
+    logits and the decode (graphs on the card, NCCL captured in them)
+    bit-equal. Returns K1's launches."""
+    import torch
+
+    from realtime_whisper_asr_tpu_torch.asr import TorchWhisperASR
+    from realtime_whisper_asr_tpu_torch.models.whisper import decode as D
+    from realtime_whisper_asr_tpu_torch.models.whisper.checkpoint import (
+        load_checkpoint,
+        load_checkpoint_sharded,
+        save_checkpoint,
+    )
+    from realtime_whisper_asr_tpu_torch.ops import logmel
+    from realtime_whisper_asr_tpu_torch.parallel import shard_model
+
+    asr = TorchWhisperASR(model_size=model_size, dtype=torch.bfloat16, device=device, seed=0,
+                          quantization="int8-all")
+    cfg = asr.model.cfg
+    ckpt = os.path.join(d, "int8-all")
+    nbytes = save_checkpoint(ckpt, asr.model.state_dict(), cfg)
+    t0 = time.perf_counter()
+    _, local = load_checkpoint_sharded(ckpt, mesh)
+    load_s = time.perf_counter() - t0
+    _, whole = load_checkpoint(ckpt)
+    unequal = [k for k in whole if not torch.equal(whole[k], local[k])]
+    read = sum(t.numel() * t.element_size() for t in local.values())
+    if unequal or local.keys() != whole.keys():
+        raise AssertionError(f"load_checkpoint_sharded at 1 x 1: {unequal[:3]} differ")
+    print(f"parallel: load_checkpoint_sharded of {model_size} int8-all (native, "
+          f"{nbytes / 1e9:.3f} GB file) at mesh {mesh.shape}: {len(local)} tensors bit-equal to "
+          f"load_checkpoint, {read / 1e9:.3f} GB copied in {load_s:.2f} s")
+    tp = shard_model(local, cfg, mesh, dtype=torch.bfloat16, local=True)
+    del local, whole
+
+    opts = dataclasses.replace(asr._make_opts(), max_new_tokens=32, max_total_tokens=32)
+    plan = D.plan_window(cfg, opts)
+    aux = torch.from_numpy(plan.aux).to(device)[None]
+    logmel.logmel_launches = 0
+    with torch.inference_mode():
+        mel = logmel.log_mel_spectrogram(torch.from_numpy(speechy_audio(16.0)).to(device),
+                                         n_mels=cfg.n_mels)[None]
+    launches = logmel.logmel_launches
+    captured = torch_device(device).type == "cuda"
+    got = {}
+    for name, model in (("unsharded", asr.model), ("tp", tp)):
+        loop = D.DecodeLoop()
+        with torch.inference_mode():
+            xa = model.encode(mel.to(model.dtype))
+            cache = model.init_cache(xa)
+            init = torch.from_numpy(plan.init[None].astype(np.int64)).to(device)
+            pre, _ = model.decode_span(init, 0, cache)
+            packed = D._decode_window(model, opts, xa, aux, plan, asr._extra_suppress, None,
+                                      loop, captured=captured)
+        step = graph_step_ms(loop)[1] if captured else None
+        got[name] = (pre.cpu(), packed.cpu(), loop.stats, step)
+    (pre1, packed1, stats1, ms1), (pre2, packed2, stats2, ms2) = got["unsharded"], got["tp"]
+    if not (torch.equal(pre1, pre2) and torch.equal(packed1.view(torch.int32),
+                                                     packed2.view(torch.int32))):
+        raise AssertionError(f"parallel tp decode: prefill logits equal {torch.equal(pre1, pre2)}, "
+                             f"tokens {packed1[:plan.max_new].tolist()} vs "
+                             f"{packed2[:plan.max_new].tolist()}")
+    tokens = [int(t) for t in packed2[: plan.max_new]]
+    ms = "not measured (no card)" if ms1 is None else f"{ms2:.3f} vs {ms1:.3f} unsharded"
+    print(f"parallel: tp decode of {model_size} int8-all at mesh {mesh.shape}, 16 s window, "
+          f"32-token cap: prefill logits {tuple(pre2.shape)} and the packed result bit-equal "
+          f"to the unsharded port ({len(tokens)} token slots); captures {stats2['captures']} "
+          f"(unsharded {stats1['captures']}), replays {stats2['replays']}; kernel ms a step "
+          f"{ms}; K1 launches {launches}; {smi}")
+    return launches
+
+
+def _train_runs(model_size: str, device: str, mesh, pp_mesh) -> int:
+    """``phase_train``'s full-width cell at 1 x 1: two steps of ``make_train_step``
+    (the reference), of ``make_sharded_train_step`` and of it with
+    ``sequence_parallel``, each from the seeded init, the sharded ones
+    bit-equal to the reference in the losses and every parameter; one
+    ``make_pp_train_step`` step at one stage and 2 microbatches, its loss
+    within 1e-5 relative of the reference's first. Returns K1's launches."""
+    import gc
+    import tempfile
+
+    import torch
+
+    from realtime_whisper_asr_tpu_torch.models.whisper.config import get_config
+    from realtime_whisper_asr_tpu_torch.models.whisper.tokenizer import MockTokenizer
+    from realtime_whisper_asr_tpu_torch.ops import logmel
+    from realtime_whisper_asr_tpu_torch.parallel import (
+        data_sharding,
+        make_pp_train_state,
+        make_pp_train_step,
+    )
+    from realtime_whisper_asr_tpu_torch.train.data import DataPipeline, prepare_batch
+    from realtime_whisper_asr_tpu_torch.train.train_step import (
+        make_sharded_train_step,
+        make_train_state,
+        make_train_step,
+    )
+
+    cfg = get_config(model_size)
+    with tempfile.TemporaryDirectory() as d:
+        man = write_manifest(d, list(TRAIN_CLIPS))
+        (batch,) = DataPipeline(man, cfg, MockTokenizer(cfg), batch_size=2, seed=0).epochs(1)
+    is_cuda = torch_device(device).type == "cuda"
+    ref: dict = {}
+
+    def run(name, steps, make):
+        """``steps`` steps from the seeded init; the first run's parameters
+        are kept as the reference, each later run's compared with them on
+        the device. Returns (name, losses, s a step, peak GB above the
+        start, the tensors that differ)."""
+        gc.collect()
+        empty_device_cache(device)
+        start = torch.cuda.memory_allocated() if is_cuda else 0
+        if is_cuda:
+            torch.cuda.reset_peak_memory_stats()
+        opt = _recipe(1e-4, 0)
+        state, step, shard_fn = make(opt, torch.Generator(device).manual_seed(0))
+        losses, secs = [], []
+        for _ in range(steps):
+            sync_device(device)
+            t0 = time.perf_counter()
+            state, loss = step(state, prepare_batch(batch, cfg, device, shard_fn=shard_fn))
+            losses.append(float(loss))
+            secs.append(time.perf_counter() - t0)
+        peak = (torch.cuda.max_memory_allocated() - start) / 1e9 if is_cuda else float("nan")
+        if not ref:
+            ref.update({k: v.detach() for k, v in state.params.items()})
+        unequal = [k for k in ref if not torch.equal(ref[k], state.params[k])]
+        worst = max((float((ref[k] - state.params[k]).abs().max()), k) for k in unequal) \
+            if unequal else None
+        print(f"parallel train {model_size} f32, batch 2 x 16 s x 64 tokens at mesh "
+              f"{mesh.shape}: {name}: losses {losses}, s a step {[round(s, 4) for s in secs]}, "
+              f"peak memory {peak:.2f} GB above the start")
+        del state, step
+        return name, losses, (unequal, worst)
+
+    logmel.logmel_launches = 0
+    runs = [run("make_train_step", 2, lambda opt, gen: (
+        make_train_state(cfg, gen, opt, device=device)[0], make_train_step(cfg, opt, device)[0],
+        None))]
+    for sp in (False, True):
+        runs.append(run(f"make_sharded_train_step(sequence_parallel={sp})", 2,
+                        lambda opt, gen, sp=sp: (
+                            make_train_state(cfg, gen, opt, mesh=mesh)[0],
+                            make_sharded_train_step(cfg, mesh, opt, sequence_parallel=sp)[0],
+                            data_sharding(mesh))))
+    n_tensors = len(ref)
+    ref.clear()  # the pipeline's step is held by its loss alone
+    runs.append(run("make_pp_train_step(1 stage, 2 microbatches)", 1, lambda opt, gen: (
+        make_pp_train_state(cfg, gen, pp_mesh, opt)[0],
+        make_pp_train_step(cfg, pp_mesh, 2, opt)[0], None)))
+    ref.clear()
+    launches = logmel.logmel_launches
+    ref_losses = runs[0][1]
+    for name, losses, (unequal, worst) in runs[1:3]:
+        if losses != ref_losses or unequal:
+            raise AssertionError(f"parallel train: {name} losses {losses} vs {ref_losses}, "
+                                 f"{len(unequal)} tensors differ ({unequal[:3]}; largest "
+                                 f"|Δ| {worst})")
+    pp_loss = runs[3][1][0]
+    rel = abs(pp_loss - ref_losses[0]) / abs(ref_losses[0])
+    print(f"parallel train: the sharded steps, plain and sequence-parallel, bit-equal to "
+          f"make_train_step in both losses and all {n_tensors} tensors; the 1-stage pipeline "
+          f"step's loss {pp_loss!r} vs {ref_losses[0]!r} (rel {rel:.3g}, tolerance 1e-5)")
+    if rel > 1e-5:
+        raise AssertionError(f"parallel train: pipeline loss {pp_loss} vs {ref_losses[0]}")
+    return launches
+
+
+def _train_state_resume(device: str, mesh, d: str) -> int:
+    """The sharded train state at test-tiny: 2 steps, saved on the mesh,
+    loaded into a fresh template, 1 step == 3 steps bit for bit. Returns
+    K1's launches."""
+    import torch
+
+    from realtime_whisper_asr_tpu_torch.models.whisper.checkpoint import (
+        load_train_state,
+        save_train_state,
+    )
+    from realtime_whisper_asr_tpu_torch.models.whisper.config import get_config
+    from realtime_whisper_asr_tpu_torch.models.whisper.tokenizer import MockTokenizer
+    from realtime_whisper_asr_tpu_torch.ops import logmel
+    from realtime_whisper_asr_tpu_torch.parallel import data_sharding
+    from realtime_whisper_asr_tpu_torch.train.data import DataPipeline, prepare_batch
+    from realtime_whisper_asr_tpu_torch.train.train_step import (
+        make_sharded_train_step,
+        make_train_state,
+    )
+
+    cfg = get_config("test-tiny")
+    man = write_manifest(d, [(1.0 + 0.25 * i, 3 + i) for i in range(6)])
+    batches = list(DataPipeline(man, cfg, MockTokenizer(cfg), batch_size=2, seed=0).epochs(1))
+    opt = _recipe(1e-3, 1)
+    step, _ = make_sharded_train_step(cfg, mesh, opt)
+    logmel.logmel_launches = 0
+    prepared = [prepare_batch(x, cfg, device, shard_fn=data_sharding(mesh)) for x in batches]
+
+    def fresh():
+        return make_train_state(cfg, torch.Generator(device).manual_seed(0), opt, mesh=mesh)[0]
+
+    straight = fresh()
+    for x in prepared[:3]:
+        straight, _ = step(straight, x)
+    state = fresh()
+    for x in prepared[:2]:
+        state, _ = step(state, x)
+    path = os.path.join(d, "ts")
+    save_train_state(path, state, mesh)
+    resumed, _ = step(load_train_state(path, fresh(), mesh), prepared[2])
+    unequal = [k for k, v in straight.params.items() if not torch.equal(v, resumed.params[k])]
+    if unequal or resumed.step != 3:
+        raise AssertionError(f"parallel train-state resume: {unequal[:3]}, step {resumed.step}")
+    print(f"parallel: sharded train state at test-tiny, mesh {mesh.shape}: 2 steps, saved "
+          f"({sorted(os.listdir(path))}), loaded, 1 step == 3 steps, all {len(straight.params)} "
+          f"tensors bit-equal")
+    return logmel.logmel_launches
+
+
+def _finetune_torchrun(device: str, d: str) -> None:
+    """``tools/finetune.py --mesh 1x1`` at test-tiny under
+    ``torch.distributed.run --nproc-per-node 1`` (NCCL on the card): exit 0
+    and a checkpoint written."""
+    man = write_manifest(d, [(1.0 + 0.25 * i, 3 + i) for i in range(4)])
+    out = os.path.join(d, "torchrun")
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc-per-node", "1",
+           "-m", "realtime_whisper_asr_tpu_torch.tools.finetune", "--manifest", man, "--model",
+           "test-tiny", "--out", out, "--batch-size", "2", "--mesh", "1x1", "--save-every", "1",
+           "--log-every", "1"] + ([] if torch_device(device).type == "cuda" else ["--cpu"])
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(cmd, cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                            text=True, start_new_session=True)
+    try:
+        log, _ = proc.communicate(timeout=300)
+    finally:
+        if proc.poll() is None:  # the time limit: torchrun and its worker go
+            os.killpg(proc.pid, 9)
+            proc.communicate()
+    sec = time.perf_counter() - t0
+    written = sorted(os.listdir(os.path.join(out, "checkpoint"))) if proc.returncode == 0 else []
+    if proc.returncode != 0 or "rtwa_torch.safetensors" not in written:
+        raise AssertionError(f"finetune under torchrun: exit {proc.returncode}: {log[-2000:]}")
+    line = [ln for ln in log.splitlines() if ln.startswith("{")][-1]
+    print(f"parallel: finetune --mesh 1x1 under torch.distributed.run --nproc-per-node 1: exit 0 "
+          f"in {sec:.1f} s, {line}, checkpoint {written}, train state "
+          f"{sorted(os.listdir(os.path.join(out, 'train_state')))}")
+
+
+def phase_parallel(smi: str, model_size: str = "large-v3", device: str = "cuda") -> int:
+    """The multi-rank path on one card, as a world of one over NCCL at mesh
+    1 x 1 and one pipeline stage: the tensor-parallel decode
+    (``_parallel_decode``), the dp x tp and pipeline steps of the training
+    cell (``_train_runs``), the sharded train state's resume and the
+    finetune tool under torchrun. Every collective runs at size 1; the
+    checks hold the parallel path bit-equal to the single-card one (the
+    pipeline's loss within 1e-5). Returns K1's launches."""
+    import tempfile
+
+    import torch.distributed as dist
+
+    from realtime_whisper_asr_tpu_torch.parallel import init_distributed, make_mesh, make_pp_mesh
+
+    t0 = time.perf_counter()
+    # this process alone: NCCL on the card (its communicator made at once)
+    init_distributed(device, store=dist.HashStore(), rank=0, world_size=1)
+    mesh = make_mesh()
+    pp_mesh = make_pp_mesh(1)
+    print(f"parallel: world of one over {dist.get_backend()} on {mesh.device}, mesh "
+          f"{mesh.shape}, pipeline {pp_mesh.shape}")
+    with tempfile.TemporaryDirectory() as d:
+        launches = _parallel_decode(smi, model_size, device, mesh, d)
+        launches += _train_runs(model_size, device, mesh, pp_mesh)
+        launches += _train_state_resume(device, mesh, d)
+        _finetune_torchrun(device, d)
+    dist.destroy_process_group()
+    print(f"parallel: {time.perf_counter() - t0:.1f} s; K1 launches {launches}; {smi}")
+    return launches
+
+
 def main() -> int:
     import gc
 
@@ -3980,16 +4276,19 @@ def main() -> int:
     torch.cuda.empty_cache()
     cli_launches = run("cli", phase_cli, smi)
     train_launches = run("train", phase_train, smi)
+    gc.collect()
+    torch.cuda.empty_cache()
+    parallel_launches = run("parallel", phase_parallel, smi)
     run("train_vad", phase_train_vad)
     chain_launches = run("microbench", phase_microbench)
     src = "realtime_whisper_asr_tpu_torch/csrc/"
     entries = []
     for name, source, replaces, count, rows, main_row in (
-        # K1: the large-v3 main path's launches, the app path's, the CLI's
-        # and the training path's
+        # K1: the large-v3 main path's launches, the app path's, the CLI's,
+        # the training path's and the parallel path's
         ("logmel", src + "logmel.cu", "realtime_whisper_asr_tpu/ops/logmel.py:76",
-         launches[None]["logmel"] + app_launches + cli_launches + train_launches, logmel_rows,
-         ("16 s", 128)),
+         launches[None]["logmel"] + app_launches + cli_launches + train_launches
+         + parallel_launches, logmel_rows, ("16 s", 128)),
         # the main path calls int4_linear (bf16, with bias): its row stands for
         # K2; the error is the largest over int4_matmul's and int4_linear's rows
         ("int4_linear", src + "int4_matmul.cu", "realtime_whisper_asr_tpu/ops/int4_matmul.py:44",

@@ -19,8 +19,15 @@ Train states (``save_train_state`` / ``load_train_state``, the JAX module's
 orbax ones in the port's format): ``train_state.safetensors`` holds every
 tensor of a ``train.TrainState`` (the params, the optimizer's moments) under
 its path in the state's tree, and ``train_state.json`` the rest (the step,
-the optimizer's counts). The sharded loader waits for the port's
-``parallel`` package.
+the optimizer's counts).
+
+Under a mesh (``parallel.Mesh`` or a pipeline's ``StageMesh``): each rank
+writes its own state's pair of files (``train_state.rank<r>.*``) and rank
+0 a manifest of the mesh's shape (``mesh.json``); a resume reads its rank's
+files into a template of the same mesh shape, and any other shape (or a
+state saved without a mesh) raises. ``load_checkpoint_sharded`` reads a
+native checkpoint straight into a mesh's tensor-parallel layout: each rank
+copies its slices of the mapped file and nothing else.
 """
 
 from __future__ import annotations
@@ -74,6 +81,13 @@ def load_checkpoint(path: str, dtype=None) -> tuple[WhisperConfig, dict]:
     f32. Raises ``ValueError`` for the JAX package's orbax checkpoint."""
     with open(os.path.join(path, _CONFIG_FILE)) as f:
         cfg = WhisperConfig(**json.load(f))
+    state = _read_state(path)
+    return cfg, (state if dtype is None else _cast_floats(state, dtype))
+
+
+def _read_state(path: str) -> dict:
+    """The state file of a native checkpoint (a mapped view); raises
+    ``ValueError`` for the JAX package's orbax checkpoint."""
     state_file = os.path.join(path, _STATE_FILE)
     if not os.path.exists(state_file):
         if os.path.isdir(os.path.join(path, _ORBAX_DIR)):
@@ -84,7 +98,22 @@ def load_checkpoint(path: str, dtype=None) -> tuple[WhisperConfig, dict]:
                 f"realtime_whisper_asr_tpu_torch.models.whisper.convert.params_from_jax, then "
                 f"this module's save_checkpoint")
         raise FileNotFoundError(f"{path} has {_CONFIG_FILE} but no {_STATE_FILE}")
-    state = read_safetensors(state_file)
+    return read_safetensors(state_file)
+
+
+def load_checkpoint_sharded(path: str, mesh, dtype=None) -> tuple[WhisperConfig, dict]:
+    """(config, this rank's shards) of a native checkpoint in the mesh's
+    tensor-parallel layout (``parallel.sharding``): each tensor's slice is
+    copied out of the mapped file, so no rank reads or holds the whole
+    model. Floats cast to ``dtype`` when given (quantized scales kept f32).
+    ``parallel.sharding.shard_model(state, cfg, mesh, local=True)`` builds
+    the model over them."""
+    from realtime_whisper_asr_tpu_torch.parallel.sharding import shard_tensor, split_of
+
+    with open(os.path.join(path, _CONFIG_FILE)) as f:
+        cfg = WhisperConfig(**json.load(f))
+    state = {k: shard_tensor(v, split_of(k)[0], mesh.model_rank, mesh.model).clone()
+             for k, v in _read_state(path).items()}
     return cfg, (state if dtype is None else _cast_floats(state, dtype))
 
 
@@ -94,6 +123,14 @@ def load_checkpoint(path: str, dtype=None) -> tuple[WhisperConfig, dict]:
 
 _TRAIN_TENSORS = "train_state.safetensors"
 _TRAIN_META = "train_state.json"
+_MESH_FILE = "mesh.json"
+
+
+def _train_files(mesh) -> tuple[str, str]:
+    """(tensor file, JSON file) of this rank's train state."""
+    if mesh is None:
+        return _TRAIN_TENSORS, _TRAIN_META
+    return f"train_state.rank{mesh.rank}.safetensors", f"train_state.rank{mesh.rank}.json"
 
 
 def _leaves(node, path: str, tensors: dict, meta: dict) -> None:
@@ -117,15 +154,26 @@ def _leaves(node, path: str, tensors: dict, meta: dict) -> None:
         raise TypeError(f"train state leaf {path}: {type(node).__name__}")
 
 
-def save_train_state(path: str, state) -> int:
+def save_train_state(path: str, state, mesh=None) -> int:
     """Persist a ``train.TrainState`` (params + optimizer moments and
-    counts + step) under ``path``; returns the tensor file's bytes."""
+    counts + step) under ``path``; returns the tensor file's bytes. Under
+    ``mesh`` every rank writes its own files and rank 0 the mesh's shape;
+    every rank returns once all have written."""
     tensors, meta = {}, {}
     _leaves(state, "", tensors, meta)
     os.makedirs(path, exist_ok=True)
-    with open(os.path.join(path, _TRAIN_META), "w") as f:
+    tensor_file, meta_file = _train_files(mesh)
+    with open(os.path.join(path, meta_file), "w") as f:
         json.dump(meta, f, indent=1)
-    return write_safetensors(os.path.join(path, _TRAIN_TENSORS), tensors)
+    n = write_safetensors(os.path.join(path, tensor_file), tensors)
+    if mesh is not None:
+        import torch.distributed as dist
+
+        if mesh.rank == 0:
+            with open(os.path.join(path, _MESH_FILE), "w") as f:
+                json.dump({"shape": mesh.shape}, f)
+        dist.barrier()
+    return n
 
 
 def _restore(node, path: str, tensors: dict, meta: dict):
@@ -147,13 +195,26 @@ def _restore(node, path: str, tensors: dict, meta: dict):
     return tuple(values) if fields is None else type(node)(*values)
 
 
-def load_train_state(path: str, template_state):
+def load_train_state(path: str, template_state, mesh=None):
     """Resume a training run: restore into a freshly built template
     (``train.make_train_state`` with the same optimizer), tensor by tensor
     in place, so every leaf keeps the template's device, dtype and
     ``requires_grad``; the counts and the step from the JSON. A leaf the
-    file lacks raises ``KeyError``."""
-    with open(os.path.join(path, _TRAIN_META)) as f:
+    file lacks raises ``KeyError``. Under ``mesh``, this rank's files of a
+    state saved on a mesh of the same shape; another shape, or a state
+    saved with a mesh where none is given (or the reverse), raises
+    ``ValueError``."""
+    manifest = os.path.join(path, _MESH_FILE)
+    saved = None
+    if os.path.exists(manifest):
+        with open(manifest) as f:
+            saved = json.load(f)["shape"]
+    here = None if mesh is None else dict(mesh.shape)
+    if saved != here:
+        raise ValueError(f"{path} holds a train state saved on mesh {saved}; it cannot resume "
+                         f"on mesh {here}")
+    tensor_file, meta_file = _train_files(mesh)
+    with open(os.path.join(path, meta_file)) as f:
         meta = json.load(f)
-    tensors = read_safetensors(os.path.join(path, _TRAIN_TENSORS))
+    tensors = read_safetensors(os.path.join(path, tensor_file))
     return _restore(template_state, "", tensors, meta)

@@ -30,10 +30,17 @@ numerics, in PyTorch idiom:
 
 The public functions keep the JAX package's layouts: mel (B, T, n_mels),
 encoder output (B, T/2, d), caches (L, B, H, T, Dh), logits f32.
+
+Tensor parallelism (``parallel/tp.py``) subclasses ``Whisper``: the hooks
+here are ``_text_heads`` (the heads this process holds) and
+``_seq_scatter`` / ``_seq_gather`` around the transformer stacks of
+``encode`` and ``decode_full`` (identities here), and ``activation_sharding``
+is the sequence-parallel scope, the JAX package's context of that name.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import math
 from typing import Optional
@@ -51,6 +58,24 @@ from realtime_whisper_asr_tpu_torch.ops.int8_matmul import int8_bmm, int8_matmul
 
 _NEG = -1e9  # additive mask value (as the JAX package)
 _INV_SQRT2_16 = 0.70703125  # 2**-0.5 rounded to bf16 (and to f16 alike)
+
+#: the sequence-parallel scope (``parallel.sharding.sequence_sharding``), or None
+_ACT_SHARDING = None
+
+
+@contextlib.contextmanager
+def activation_sharding(sharding):
+    """Within this block a tensor-parallel model's ``encode`` and
+    ``decode_full`` run sequence-parallel over ``sharding``'s group: the
+    layer norms and residuals between the tensor-parallel linears hold
+    T / tp positions of each row (the JAX package's
+    ``activation_sharding``). Restored on exit."""
+    global _ACT_SHARDING
+    prev, _ACT_SHARDING = _ACT_SHARDING, sharding
+    try:
+        yield
+    finally:
+        _ACT_SHARDING = prev
 
 
 class LayerNorm(nn.LayerNorm):
@@ -70,16 +95,20 @@ def _gelu(x: torch.Tensor) -> torch.Tensor:
     return (x * 0.5) * torch.special.erfc(-x * _INV_SQRT2_16)
 
 
+def _linear(x: torch.Tensor, weight: torch.Tensor, bias: Optional[torch.Tensor]) -> torch.Tensor:
+    """The JAX package's ``_linear`` rounding: at a 16-bit dtype the product
+    is rounded to the dtype, then the bias is added in it (the fused call
+    would add it before its one rounding). At f32 the fused call."""
+    if x.dtype == torch.float32 or bias is None:
+        return F.linear(x, weight, bias)
+    return F.linear(x, weight) + bias
+
+
 class Linear(nn.Linear):
-    """Dense linear that rounds where the JAX package's ``_linear`` does: at a
-    16-bit dtype the product is rounded to the dtype, then the bias is added
-    in it (the fused call would add it before its one rounding). At f32 the
-    fused call."""
+    """Dense linear that rounds where the JAX package's ``_linear`` does."""
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        if x.dtype == torch.float32 or self.bias is None:
-            return F.linear(x, self.weight, self.bias)
-        return F.linear(x, self.weight) + self.bias
+        return _linear(x, self.weight, self.bias)
 
 
 class Conv1d(nn.Conv1d):
@@ -463,6 +492,19 @@ class Whisper(nn.Module):
     def dtype(self) -> torch.dtype:
         return self.decoder.pos_emb.dtype
 
+    @property
+    def _text_heads(self) -> int:
+        """The decoder heads this model computes (and its caches hold)."""
+        return self.cfg.n_text_head
+
+    def _seq_scatter(self, x: torch.Tensor) -> torch.Tensor:
+        """Enter a transformer stack: x (B, T, d) as the blocks carry it."""
+        return x
+
+    def _seq_gather(self, x: torch.Tensor) -> torch.Tensor:
+        """Leave a transformer stack: the blocks' carry as (B, T, d)."""
+        return x
+
     def _emb_rows(self, tokens: torch.Tensor) -> torch.Tensor:
         emb = self.decoder.tok_emb
         return emb.rows(tokens) if isinstance(emb, Int8Embedding) else emb[tokens]
@@ -471,10 +513,10 @@ class Whisper(nn.Module):
 
     def encode(self, mel: torch.Tensor) -> torch.Tensor:
         """mel (B, T, n_mels) -> (B, T//2, d), T ≤ 2*n_audio_ctx."""
-        x = self.encoder.stem(mel)
+        x = self._seq_scatter(self.encoder.stem(mel))
         for blk in self.encoder.blocks:
             x = blk.mlp_block(blk.mha_block(x))
-        return self.encoder.ln_post(x)
+        return self.encoder.ln_post(self._seq_gather(x))
 
     # ------------------------------------------------------------- decoder
 
@@ -483,14 +525,14 @@ class Whisper(nn.Module):
         written into ``out`` (a (K, V) pair of such buffers) when given. K/V
         come from the raw encoder output (cross_ln only normalizes the
         query)."""
-        cfg = self.cfg
-        shape = (cfg.n_text_layer, xa.shape[0], cfg.n_text_head, xa.shape[1],
+        cfg, n_head = self.cfg, self._text_heads
+        shape = (cfg.n_text_layer, xa.shape[0], n_head, xa.shape[1],
                  cfg.n_text_state // cfg.n_text_head)
         ck, cv = out if out is not None else (
             torch.empty(shape, dtype=xa.dtype, device=xa.device) for _ in range(2))
         for layer, blk in enumerate(self.decoder.blocks):
-            ck[layer] = _split_heads(blk.cross.key(xa), cfg.n_text_head)
-            cv[layer] = _split_heads(blk.cross.value(xa), cfg.n_text_head)
+            ck[layer] = _split_heads(blk.cross.key(xa), n_head)
+            cv[layer] = _split_heads(blk.cross.value(xa), n_head)
         return ck, cv
 
     def _precompute_cross_kv_q8(self, xa: torch.Tensor, out) -> None:
@@ -498,7 +540,7 @@ class Whisper(nn.Module):
         layer's K/V quantized per row as soon as it is computed, so at most
         one layer's K/V in xa's dtype is ever live (the JAX package's
         per-layer ``_precompute_cross_kv_q8``)."""
-        n_head = self.cfg.n_text_head
+        n_head = self._text_heads
         k8, ks, v8, vs = out
         for layer, blk in enumerate(self.decoder.blocks):
             for q_buf, s_buf, lin in ((k8, ks, blk.cross.key), (v8, vs, blk.cross.value)):
@@ -512,8 +554,8 @@ class Whisper(nn.Module):
         cfg = self.cfg
         kv_quant = self.kv_quant if kv_quant is None else kv_quant
         dh = cfg.n_text_state // cfg.n_text_head
-        self_shape = (cfg.n_text_layer, batch, cfg.n_text_head, text_ctx, dh)
-        cross_shape = (cfg.n_text_layer, batch, cfg.n_text_head, audio_ctx, dh)
+        self_shape = (cfg.n_text_layer, batch, self._text_heads, text_ctx, dh)
+        cross_shape = (cfg.n_text_layer, batch, self._text_heads, audio_ctx, dh)
         shapes = (self_shape, self_shape, cross_shape, cross_shape)
         if not kv_quant:
             return DecoderCache(*(torch.empty(shape, dtype=dtype, device=device)
@@ -663,9 +705,10 @@ class Whisper(nn.Module):
         t = tokens.shape[1]
         x = (self._emb_rows(tokens) + dec.pos_emb[:t]).to(xa.dtype)
         causal = torch.triu(torch.full((t, t), _NEG, device=xa.device), diagonal=1)
+        x = self._seq_scatter(x)
         for blk in dec.blocks:
             x = _decoder_block_full(blk, x, xa, causal)
-        return self.logits(dec.ln(x))
+        return self.logits(dec.ln(self._seq_gather(x)))
 
 
 def _decoder_block_full(blk: Block, h: torch.Tensor, xa: torch.Tensor,

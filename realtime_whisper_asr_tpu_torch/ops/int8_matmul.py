@@ -32,9 +32,12 @@ def _reciprocal(device: torch.device) -> torch.Tensor:
     return device_constant(1.0, device) / device_constant(127.0, device)
 
 
-def quantize_rows(x: torch.Tensor, compiled: bool = False) -> tuple[torch.Tensor, torch.Tensor]:
+def quantize_rows(x: torch.Tensor, compiled: bool = False,
+                  row_max=None) -> tuple[torch.Tensor, torch.Tensor]:
     """Dynamic per-row absmax int8 quantization of activations, as the JAX
     package's ``_linear``: (…, K) -> (xq int8 (…, K), sx f32 (…, 1)).
+    ``row_max`` maps the local absmax (…, 1) to the whole row's, where x
+    holds a slice of each row (a row-parallel linear's all-reduce MAX).
 
     The scale is the absmax over 127 and xq is round(x / sx), half to even,
     clipped to ±127. ``compiled=False``: both are IEEE f32 divisions on
@@ -47,6 +50,8 @@ def quantize_rows(x: torch.Tensor, compiled: bool = False) -> tuple[torch.Tensor
     bit decides the rounding."""
     x32 = x.float()
     amax = x32.abs().amax(dim=-1, keepdim=True)
+    if row_max is not None:
+        amax = row_max(amax)
     sx = (amax * _reciprocal(x32.device) if compiled
           else amax / device_constant(127.0, x32.device))
     sx = torch.clamp(sx, min=1e-12)

@@ -226,19 +226,25 @@ class DataPipeline:
             raise errors[0]
 
 
-def prepare_batch(batch: dict, cfg, device="cuda") -> dict:
+def prepare_batch(batch: dict, cfg, device="cuda", shard_fn=None) -> dict:
     """Device half: each row's audio → its log-mel on ``device`` (the card
     unless asked otherwise; raises without CUDA), stacked to (B, T/160,
     n_mels) f32; tokens as int64 and the mask as f32 on ``device``.
 
     ``ops.logmel.log_mel_spectrogram`` on a CUDA row launches the kernel
-    (K1): one launch per row. On a CPU row it runs the plain version."""
+    (K1): one launch per row. On a CPU row it runs the plain version.
+
+    ``shard_fn`` (``parallel.sharding.data_sharding(mesh)``) first takes
+    this data rank's rows of the host batch: a rank computes the log-mel of
+    its own rows only, which equal the whole batch's (log-mel is per row)."""
     import torch
 
     from realtime_whisper_asr_tpu_torch.device import resolve_device
     from realtime_whisper_asr_tpu_torch.ops.logmel import log_mel_spectrogram
 
     dev = resolve_device(device)
+    if shard_fn is not None:
+        batch = shard_fn(batch)
     audio = torch.from_numpy(np.ascontiguousarray(batch["audio"], np.float32)).to(dev)
     out = {k: torch.from_numpy(np.asarray(batch[k])).to(dev, torch.int64)
            for k in ("tokens_in", "tokens_out")}

@@ -153,13 +153,39 @@ def scale_by_learning_rate(learning_rate: Union[float, Schedule]) -> GradientTra
     return GradientTransformation(lambda params: ScaleByScheduleState(0), update)
 
 
+class ShardedLeaves(dict):
+    """A rank's leaves (name -> tensor) of which those named in ``split``
+    are its parts of leaves split over ``group`` (a mesh's model group, a
+    pipeline's stages); the rest are whole and equal on every rank. The
+    sharded train steps hand their gradients to the optimizer as one, so
+    that ``global_norm`` is the norm of the whole tree."""
+
+    def __init__(self, leaves: Params, split: frozenset, group):
+        super().__init__(leaves)
+        self.split, self.group = split, group
+
+
 def global_norm(updates: Params) -> torch.Tensor:
     """sqrt of the sum over leaves of each leaf's sum of squares, as a
     float32 0-d tensor. The squares are float32 (optax's); the sums
     accumulate in float64, so the norm is the rounded exact one whatever
-    the device's reduction order (XLA's float32 order is its own)."""
-    return torch.sqrt(sum(torch.sum(u * u, dtype=torch.float64)
-                          for u in updates.values())).float()
+    the device's reduction order (XLA's float32 order is its own).
+
+    ``ShardedLeaves``: a split leaf's sum is its parts' local sums,
+    all-reduced over the group as float64 (one all-reduce, whatever the
+    group's size); a whole leaf counts once. The leaves are then added in
+    the dict's order, as for a whole tree."""
+    sums = [torch.sum(u * u, dtype=torch.float64) for u in updates.values()]
+    if isinstance(updates, ShardedLeaves):
+        import torch.distributed as dist
+
+        at = [i for i, k in enumerate(updates) if k in updates.split]
+        if at:
+            parts = torch.stack([sums[i] for i in at])
+            dist.all_reduce(parts, group=updates.group)
+            for j, i in enumerate(at):
+                sums[i] = parts[j]
+    return torch.sqrt(sum(sums)).float()
 
 
 def clip_by_global_norm(max_norm: float) -> GradientTransformation:

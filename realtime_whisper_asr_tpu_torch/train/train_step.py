@@ -1,8 +1,8 @@
-"""Single-card Whisper training step: teacher-forced cross-entropy.
+"""Whisper training steps: teacher-forced cross-entropy, on one card or a mesh.
 
-Port of ``realtime_whisper_asr_tpu/train/train_step.py`` for one card: the
-counterpart of ``make_sharded_train_step`` on a 1 × 1 mesh (the sharded
-steps wait for the port's ``parallel`` package).
+Port of ``realtime_whisper_asr_tpu/train/train_step.py``: ``make_train_step``
+is the single-card step, ``make_sharded_train_step`` the dp × tp one over a
+``parallel.Mesh`` (the GPipe step is ``parallel.pipeline.make_pp_train_step``).
 
 - ``TrainState``: ``params`` (name -> tensor: every entry of
   ``model.Whisper``'s state dict, each a leaf that requires grad, the JAX
@@ -18,6 +18,17 @@ steps wait for the port's ``parallel`` package).
   and the backward), the frozen entries' gradients zeroed.
 - The step updates the parameters and the moments in place under
   ``no_grad``, the stand-in for ``donate_argnums``.
+- Under a mesh (``make_train_state(mesh=)``, ``make_sharded_train_step``)
+  the params are this rank's shards (``parallel.sharding``), drawn whole
+  from the seeded generator and sliced, so the sharded init is the
+  unsharded one; the model is a ``parallel.tp.TensorParallelWhisper``
+  skeleton, whose region functions are recomputed in the backward like any
+  other op. Each data rank runs its rows; the loss is its
+  ``sum(nll·mask)`` over the whole batch's ``sum(mask)`` (an all-reduce over
+  the data group), so the gradients are summed over the data group, not
+  averaged. ``sequence_parallel`` runs the step inside
+  ``model.activation_sharding``. The optimizer gets the gradients as
+  ``optim.ShardedLeaves``: the global norm is the whole tree's.
 
 Two entries differ from the JAX tree in layout, and training keeps them
 equal to it:
@@ -34,6 +45,7 @@ equal to it:
 
 from __future__ import annotations
 
+import contextlib
 import functools
 from typing import Any, NamedTuple
 
@@ -41,7 +53,12 @@ import torch
 
 from realtime_whisper_asr_tpu_torch.device import exact_kernels, resolve_device
 from realtime_whisper_asr_tpu_torch.models.whisper.config import WhisperConfig
-from realtime_whisper_asr_tpu_torch.models.whisper.model import Whisper, encoder_flops, init_params
+from realtime_whisper_asr_tpu_torch.models.whisper.model import (
+    Whisper,
+    activation_sharding,
+    encoder_flops,
+    init_params,
+)
 from realtime_whisper_asr_tpu_torch.train import optim as O
 
 _K_BIAS = "attn.qkv.bias"
@@ -60,22 +77,37 @@ def _skeleton(cfg: WhisperConfig) -> Whisper:
     return Whisper(cfg, device="meta")
 
 
-def _forward(params: dict, cfg: WhisperConfig, mel: torch.Tensor,
+@functools.lru_cache(maxsize=8)
+def _tp_skeleton(cfg: WhisperConfig, mesh) -> Whisper:
+    """The tensor-parallel module tree of one mesh's model group, no storage."""
+    from realtime_whisper_asr_tpu_torch.parallel.tp import TensorParallel, TensorParallelWhisper
+
+    return TensorParallelWhisper(cfg, TensorParallel(mesh.model_group), device="meta")
+
+
+def _forward(params: dict, model: Whisper, mel: torch.Tensor,
              tokens_in: torch.Tensor) -> torch.Tensor:
-    return torch.func.functional_call(_skeleton(cfg), params, (mel, tokens_in), strict=True)
+    return torch.func.functional_call(model, params, (mel, tokens_in), strict=True)
 
 
 def loss_fn(params: dict, cfg: WhisperConfig, mel, tokens_in, tokens_out, mask) -> torch.Tensor:
     """mel (B, T, M); tokens_in/out (B, S) long; mask (B, S) 1 = count. Mean NLL."""
-    logits = torch.utils.checkpoint.checkpoint(_forward, params, cfg, mel, tokens_in,
+    return _loss(params, _skeleton(cfg), mel, tokens_in, tokens_out, mask)
+
+
+def _loss(params: dict, model: Whisper, mel, tokens_in, tokens_out, mask,
+          count=None) -> torch.Tensor:
+    logits = torch.utils.checkpoint.checkpoint(_forward, params, model, mel, tokens_in,
                                                use_reentrant=False)  # (B, S, V) f32
-    return _masked_nll(logits, tokens_out, mask)
+    return _masked_nll(logits, tokens_out, mask, count)
 
 
-def _masked_nll(logits, tokens_out, mask) -> torch.Tensor:
+def _masked_nll(logits, tokens_out, mask, count=None) -> torch.Tensor:
+    """sum(nll·mask) over ``count`` (default: sum(mask)), at least 1."""
     logp = torch.log_softmax(logits.float(), dim=-1)
     nll = -torch.gather(logp, -1, tokens_out[..., None])[..., 0]
-    return torch.sum(nll * mask) / torch.clamp(torch.sum(mask), min=1.0)
+    return torch.sum(nll * mask) / torch.clamp(torch.sum(mask) if count is None else count,
+                                               min=1.0)
 
 
 def _zero_frozen(grads: dict) -> None:
@@ -89,9 +121,15 @@ def _zero_frozen(grads: dict) -> None:
 def loss_and_grads(params: dict, cfg: WhisperConfig, batch: dict):
     """(loss, grads): ``jax.value_and_grad(loss_fn)`` over every entry of
     ``params``, the frozen slices' gradients zeroed."""
+    return _loss_and_grads(params, _skeleton(cfg), batch)
+
+
+def _loss_and_grads(params: dict, model: Whisper, batch: dict, count=None):
+    """``loss_and_grads`` over ``model``'s module tree, the loss divided by
+    ``count`` (default: the batch's mask count)."""
     with exact_kernels():
-        loss = loss_fn(params, cfg, batch["mel"], batch["tokens_in"], batch["tokens_out"],
-                       batch["mask"])
+        loss = _loss(params, model, batch["mel"], batch["tokens_in"], batch["tokens_out"],
+                     batch["mask"], count)
         grads = torch.autograd.grad(loss, list(params.values()), allow_unused=True,
                                     materialize_grads=True)
     grads = dict(zip(params, grads))
@@ -107,15 +145,23 @@ def trainable(state: dict, device, dtype=torch.float32) -> dict:
 
 
 def make_train_state(cfg: WhisperConfig, generator: torch.Generator, optimizer=None,
-                     dtype=torch.float32, device="cuda"):
+                     dtype=torch.float32, device="cuda", mesh=None):
     """Random-init TrainState on ``device`` (the card unless asked
     otherwise; raises without CUDA), drawn from ``generator`` (which lives
     on that device) by ``model.init_params``. Returns (state, optimizer);
-    ``optimizer`` defaults to ``optim.adamw(1e-5)``, as the JAX package's."""
+    ``optimizer`` defaults to ``optim.adamw(1e-5)``, as the JAX package's.
+    With ``mesh`` (a ``parallel.Mesh``), on the mesh's device: the whole
+    init, then this rank's shards of it (``sharding.shard_params``), before
+    ``optimizer.init``, so the moments are shards too."""
     optimizer = optimizer or O.adamw(1e-5)
-    device = resolve_device(device)
+    device = resolve_device(device) if mesh is None else mesh.device
     model = init_params(cfg, generator, dtype, device)
-    params = {k: v.requires_grad_(True) for k, v in model.state_dict(keep_vars=True).items()}
+    state = model.state_dict(keep_vars=True)
+    if mesh is not None:
+        from realtime_whisper_asr_tpu_torch.parallel.sharding import shard_params
+
+        state = shard_params(state, mesh)
+    params = {k: v.requires_grad_(True) for k, v in state.items()}
     return TrainState(params, optimizer.init(params), 0), optimizer
 
 
@@ -137,20 +183,73 @@ def make_train_step(cfg: WhisperConfig, optimizer=None, device="cuda"):
         O.apply_updates(state.params, updates)
         return TrainState(state.params, opt_state, state.step + 1), loss
 
+    return train_step, functools.partial(_to_device, device=dev)
+
+
+def _to_device(batch: dict, device: torch.device) -> dict:
+    """A batch (numpy or tensors) on ``device``, tokens as int64, the rest f32."""
+    return {k: torch.as_tensor(v).to(device, torch.int64 if k.startswith("tokens")
+                                     else torch.float32)
+            for k, v in batch.items()}
+
+
+def make_sharded_train_step(cfg: WhisperConfig, mesh, optimizer=None,
+                            sequence_parallel: bool = False):
+    """Returns (train_step, shard_batch) over a ``parallel.Mesh``, the JAX
+    package's ``make_sharded_train_step``.
+
+    ``train_step(state, batch)``: ``state`` from ``make_train_state(mesh=)``,
+    ``batch`` this data rank's rows on the mesh's device; returns the new
+    state and the whole batch's loss (equal on every rank). ``shard_batch``
+    takes a whole batch (numpy or tensors; B divisible by the data axis) to
+    this rank's rows on the mesh's device.
+
+    ``sequence_parallel``: Megatron-SP inside the tensor-parallel group
+    (``model.activation_sharding``): the layer norms and residuals between
+    the tensor-parallel linears hold 1/tp of the sequence, each block
+    boundary's all-reduce a reduce-scatter and an all-gather; the same
+    function as the plain dp × tp step."""
+    from realtime_whisper_asr_tpu_torch.parallel.sharding import data_sharding, split_names
+
+    optimizer = optimizer or O.adamw(1e-5)
+    rows = data_sharding(mesh)
+
+    def train_step(state: TrainState, batch: dict):
+        loss, grads = sharded_loss_and_grads(state.params, cfg, batch, mesh, sequence_parallel)
+        grads = O.ShardedLeaves(grads, split_names(grads), mesh.model_group)
+        updates, opt_state = optimizer.update(grads, state.opt_state, state.params)
+        O.apply_updates(state.params, updates)
+        return TrainState(state.params, opt_state, state.step + 1), loss
+
     def shard_batch(batch: dict) -> dict:
-        out = {}
-        for k, v in batch.items():
-            t = torch.as_tensor(v)
-            out[k] = t.to(dev, torch.int64 if k.startswith("tokens") else torch.float32)
-        return out
+        return _to_device(rows(batch), mesh.device)
 
     return train_step, shard_batch
+
+
+def sharded_loss_and_grads(params: dict, cfg: WhisperConfig, batch: dict, mesh,
+                           sequence_parallel: bool = False):
+    """``loss_and_grads`` of the whole batch over a ``parallel.Mesh``: the
+    loss on every rank, and this rank's shards of the gradients. ``batch``
+    is this data rank's rows; each data rank divides its rows' NLL sum by
+    the whole batch's mask count (an all-reduce over the data group), and
+    the losses and the gradients are summed over the data group."""
+    from realtime_whisper_asr_tpu_torch.parallel import collectives as C
+    from realtime_whisper_asr_tpu_torch.parallel.sharding import sequence_sharding
+
+    count = C.all_reduce_sum(batch["mask"].sum(), mesh.data_group)
+    scope = (activation_sharding(sequence_sharding(mesh)) if sequence_parallel
+             else contextlib.nullcontext())
+    with scope:
+        loss, grads = _loss_and_grads(params, _tp_skeleton(cfg, mesh), batch, count)
+    C.all_reduce_sum_(list(grads.values()), mesh.data_group)
+    return C.all_reduce_sum(loss, mesh.data_group), grads
 
 
 def eval_loss(params: dict, cfg: WhisperConfig, batch: dict) -> torch.Tensor:
     """``loss_fn``'s value without a graph (validation)."""
     with torch.no_grad(), exact_kernels():
-        logits = _forward(params, cfg, batch["mel"], batch["tokens_in"])
+        logits = _forward(params, _skeleton(cfg), batch["mel"], batch["tokens_in"])
         return _masked_nll(logits, batch["tokens_out"], batch["mask"])
 
 

@@ -30,6 +30,11 @@
   run_eval mains raise without CUDA unless asked for the CPU;
   ``prepare_batch`` reaches the log-mel wrapper only (no path to the plain
   version for a CUDA row), and the training code has no handler.
+- The ``parallel`` package imports neither ``jax`` nor the JAX package;
+  ``init_distributed`` and ``finetune --mesh`` / ``--pipeline-stages``
+  raise without CUDA unless asked for the CPU; no ``try`` in the package
+  could fall back from NCCL to gloo (or from a mesh to one device), and the
+  backend follows the device alone.
 """
 
 import ast
@@ -359,7 +364,8 @@ _IMPORT_TRAIN_CLI = r"""
 import importlib, sys
 for name in ("cli", "eval", "utils.hardware", "utils.log_filter", "io.subtitles", "train",
              "train.optim", "train.train_step", "train.data", "tools.finetune",
-             "tools.train_vad", "tools.run_eval"):
+             "tools.train_vad", "tools.run_eval", "parallel", "parallel.mesh",
+             "parallel.collectives", "parallel.sharding", "parallel.tp", "parallel.pipeline"):
     importlib.import_module("realtime_whisper_asr_tpu_torch." + name)
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "optax", "orbax")
@@ -443,3 +449,37 @@ def test_training_code_has_no_fallback(module):
 
     mod = importlib.import_module("realtime_whisper_asr_tpu_torch." + module)
     assert not _tries(mod.__file__)
+
+
+def test_parallel_entry_points_refuse_missing_cuda(monkeypatch, tmp_path):
+    import torch.distributed as dist
+
+    from realtime_whisper_asr_tpu_torch.parallel import init_distributed
+    from realtime_whisper_asr_tpu_torch.tools import finetune
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        init_distributed(store=dist.HashStore(), rank=0, world_size=1)
+    for flags in (["--mesh", "1x1"], ["--sequence-parallel"], ["--pipeline-stages", "1"]):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            finetune.main(["--manifest", "m.jsonl", "--out", str(tmp_path)] + flags)
+    assert not dist.is_initialized()
+
+
+@pytest.mark.parametrize("module", ["parallel.mesh", "parallel.collectives",
+                                    "parallel.sharding", "parallel.tp", "parallel.pipeline"])
+def test_parallel_code_has_no_fallback(module):
+    """No handler anywhere in the package (a ``try`` only to restore a flag
+    in its ``finally``); the one choice of backend in ``init_distributed``
+    is made on the device's type."""
+    import importlib
+    import inspect
+
+    mod = importlib.import_module("realtime_whisper_asr_tpu_torch." + module)
+    assert not [t for t in _tries(mod.__file__) if t.handlers]
+    if module == "parallel.mesh":
+        src = inspect.getsource(mod.init_distributed)
+        branches = [n for n in ast.walk(ast.parse(src)) if isinstance(n, ast.If)
+                    and "nccl" in ast.unparse(n)]
+        assert len(branches) == 1 and ast.unparse(branches[0].test) == "dev.type == 'cuda'"
+        assert "gloo" in ast.unparse(branches[0].orelse[0])

@@ -23,7 +23,9 @@
 - The train state's save / load round trip is bit-equal, and continuing
   from it equals the uninterrupted run bit for bit.
 - ``tools/finetune.py`` end to end as the JAX test has it (without a mesh):
-  its checkpoint drives ``TorchWhisperASR`` and ``--resume`` continues.
+  its checkpoint drives ``TorchWhisperASR`` and ``--resume`` continues; a
+  mesh or a stage count the world cannot run exits with the JAX tool's
+  message (the meshes themselves: tests/test_torch_parallel_*.py).
 """
 
 import json
@@ -347,10 +349,38 @@ def test_finetune_from_a_checkpoint_matches_its_weights(tmp_path):
     assert a.keys() == b.keys() and all(torch.equal(a[k], b[k]) for k in a)
 
 
-@pytest.mark.parametrize("flags", [["--mesh", "2x2"], ["--sequence-parallel"],
-                                   ["--pipeline-stages", "2"]])
-def test_finetune_refuses_the_parallel_flags(tmp_path, flags):
+@pytest.mark.parametrize("flags, message", [
+    (["--mesh", "2x2"], "mesh 2x2 needs 4 devices, have 1"),
+    (["--pipeline-stages", "2", "--mesh", "2x2"], "mutually exclusive"),
+    (["--pipeline-stages", "2", "--batch-size", "3", "--microbatches", "2"],
+     "--batch-size 3 must divide by --microbatches 2"),
+    (["--pipeline-stages", "2"], "--pipeline-stages 2 needs 2 devices, have 1"),
+], ids=["mesh-world", "pp-and-mesh", "microbatches", "pp-world"])
+def test_finetune_refuses_what_the_world_cannot_run(tmp_path, flags, message):
+    """A mesh or a stage count the world (here: this process alone) cannot
+    run exits with the JAX tool's message before anything is built."""
     from realtime_whisper_asr_tpu_torch.tools.finetune import main as finetune_main
 
-    with pytest.raises(SystemExit, match="parallel"):
+    with pytest.raises(SystemExit, match=message):
         finetune_main(["--manifest", "m.jsonl", "--out", str(tmp_path), "--cpu"] + flags)
+
+
+def test_finetune_mesh_1x1_in_a_world_of_one(tmp_path):
+    """Without torchrun the process is a world of one: ``--mesh 1x1`` runs
+    the dp × tp step over a 1-rank gloo group, equal to the single-card
+    recipe's losses bit for bit, saves its rank's train state and leaves no
+    process group behind."""
+    import torch.distributed as dist
+
+    from realtime_whisper_asr_tpu_torch.tools.finetune import finetune, parse_args
+
+    man = _manifest(tmp_path, 4)
+    common = ["--manifest", man, "--model", "test-tiny", "--batch-size", "2", "--lr", "1e-3",
+              "--warmup-steps", "1", "--save-every", "0", "--cpu"]
+    mesh = finetune(parse_args(common + ["--out", str(tmp_path / "mesh"), "--mesh", "1x1"]))
+    assert not dist.is_initialized()
+    single = finetune(parse_args(common + ["--out", str(tmp_path / "single")]))
+    assert mesh["steps"] == single["steps"] == 2
+    assert mesh["losses"] == single["losses"]
+    assert sorted(os.listdir(tmp_path / "mesh" / "train_state")) == [
+        "mesh.json", "train_state.rank0.json", "train_state.rank0.safetensors"]
