@@ -166,6 +166,18 @@ Phases, each failing the run with a non-zero exit:
      test-tiny train state's resume bit-equal; ``tools/finetune.py --mesh
      1x1`` under ``torch.distributed.run --nproc-per-node 1`` exiting 0
      with a checkpoint.
+ 18. the offline tools and the examples (``phase_tools``): the speaker
+     trainer's first step on the card against the CPU's, then 100 steps
+     whose loss falls (ms a step with and without the host's minibatch);
+     the separator trainer at its defaults (v2, batch 8 x 16,384 samples):
+     the first step from one JAX-layout checkpoint on the card against the
+     CPU's (loss and every parameter), 20 steps whose loss falls, the
+     device step's and the host batch's ms, the step's peak memory, one
+     ``v2x4`` step card vs CPU; ``calibrate --synth`` card == CPU; the
+     checkpoint drill on the golden weights (every step ok, tokens card ==
+     CPU); the soak at large-v3 ``int8-all`` (3 simulated minutes) and at
+     its default (test-tiny, 10), both ok, K1's launches = windows encoded;
+     ``examples/offline_transcribe.py`` prints golden clip 0's text.
 Prints each phase's seconds, one ``{"kernels": [...]}`` line, then as the
 last line
 ``{"ok": true, "device": {...}}``. Exits non-zero without a result when CUDA
@@ -3937,6 +3949,392 @@ def phase_train_vad() -> None:
         raise AssertionError(f"train_vad: card {card}, CPU first step {first}")
 
 
+#: phase_tools' cuts: the speaker corpus (the tool's: 160 speakers x 5
+#: utterances), the steps, the drill's decodes (random weights never emit
+#: EOT), the soak passes (the full-width one; the tool's default at test-tiny)
+SPEAKER_CORPUS = (40, 5)
+SPEAKER_STEPS = 100
+SEPARATOR_STEPS = 20
+DRILL_TOKENS = 32
+SOAK_FULL_MINUTES = 3
+SOAK_TINY_MINUTES = 10
+
+
+def _wall_ms(fn, reps: int) -> float:
+    """Host ms a call of fn(), the card synchronized after the calls."""
+    import torch
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    torch.cuda.synchronize()
+    return 1e3 * (time.perf_counter() - t0) / reps
+
+
+def _tools_speaker(smi: str) -> None:
+    """``tools/train_speaker.py`` on the card: the first step against the
+    CPU's from ``init_speaker_params(0)`` on the same minibatch (loss within
+    1e-5 relative), then ``SPEAKER_STEPS`` steps at the tool's batch (24
+    speakers x 2 utterances, lr 3e-4) over a corpus cut to
+    ``SPEAKER_CORPUS``: the loss falls; ms a step with and without the
+    host's minibatch."""
+    import torch
+
+    from realtime_whisper_asr_tpu_torch.tools import train_speaker as TS
+    from realtime_whisper_asr_tpu_torch.train import optim as O
+
+    t0 = time.perf_counter()
+    corpus = TS.make_corpus(np.random.default_rng(0), *SPEAKER_CORPUS)
+    synth_s = time.perf_counter() - t0
+    x, y = TS.minibatch(np.random.default_rng(1), corpus, 24, 2)
+    first = {}
+    for dev in ("cpu", "cuda"):
+        params, opt = TS.init_params(0, dev), O.adam(3e-4)
+        _, loss = TS.make_train_step(opt, 0.1, dev)(
+            params, opt.init(params), torch.from_numpy(x).to(dev),
+            torch.from_numpy(y).long().to(dev))
+        first[dev] = float(loss)
+    rel = abs(first["cuda"] - first["cpu"]) / abs(first["cpu"])
+    t0 = time.perf_counter()
+    _, losses = TS.train(corpus, np.random.default_rng(2), SPEAKER_STEPS, 24, 2, 3e-4, 0.1, 0,
+                         "cuda", log_every=SPEAKER_STEPS)
+    with_host = 1e3 * (time.perf_counter() - t0) / SPEAKER_STEPS
+    params, opt = TS.init_params(0, "cuda"), O.adam(3e-4)
+    state = [opt.init(params)]
+    step = TS.make_train_step(opt, 0.1, "cuda")
+    xd, yd = torch.from_numpy(x).cuda(), torch.from_numpy(y).long().cuda()
+    device_only = _wall_ms(lambda: state.__setitem__(0, step(params, state[0], xd, yd)[0]), 50)
+    early, late = float(np.mean(losses[:10])), float(np.mean(losses[-10:]))
+    print(f"tools train_speaker on {smi}: first step card vs CPU {first['cuda']:.7f} / "
+          f"{first['cpu']:.7f} (rel {rel:.3g}, tolerance 1e-5); {SPEAKER_STEPS} steps at 24 x 2, "
+          f"loss {losses[0]:.4f} -> {losses[-1]:.4f} (mean of the first / last 10: "
+          f"{early:.4f} / {late:.4f}); {with_host:.2f} ms a step with the host's minibatch, "
+          f"{device_only:.2f} ms without; corpus {len(corpus['x'])} utterances "
+          f"({SPEAKER_CORPUS[0]} speakers; the tool's 160) synthesised in {synth_s:.1f} s")
+    if rel > 1e-5 or not late < early:
+        raise AssertionError(f"train_speaker: first step {first}, losses {losses}")
+
+
+def _tools_separator(smi: str) -> None:
+    """``tools/train_separator.py`` on the card at the tool's defaults (v2,
+    batch 8 x 16,384 samples, lr 1e-3 over 2,500 steps): from one JAX-layout
+    checkpoint (``save_ckpt`` of a seeded init), the first step on the card
+    against the CPU's (loss within 1e-5 relative, every parameter within
+    1e-5 of its scale), then ``SEPARATOR_STEPS`` steps whose loss falls; ms
+    of the device step alone and of the host's ``make_batch``, the step's
+    peak memory; one ``v2x4`` step card vs CPU."""
+    import tempfile
+
+    import torch
+
+    from realtime_whisper_asr_tpu_torch.models import separation_nn as S
+    from realtime_whisper_asr_tpu_torch.tools import train_separator as TP
+
+    def compare(label: str, ckpt: str) -> int:
+        """The first step at batch 8 on the card and the CPU from ``ckpt``:
+        the loss within 1e-5 relative, each gradient leaf within 1e-4 of its
+        scale (what two f32 backwards' sums over a conv's ~266,000 positions
+        keep; ``tests/test_torch_train_separator.py``), and every parameter
+        after the step within 1e-5 of its scale of the CPU's plus what the
+        two gradients part Adam's first update ``lr·g/(|g| + 1e-8)`` by
+        there (an element of a near-zero gradient is divided by its own
+        size, so a gradient difference within the tolerance above moves it
+        by up to 2·lr). A failure raises -> the card step's peak bytes."""
+        from realtime_whisper_asr_tpu_torch.device import exact_kernels
+
+        opt = TP.make_optimizer(1e-3, 2500)
+        params, state, _, rng = TP.load_ckpt(ckpt, opt, "cpu")
+        mix, clean = TP.next_batch(rng, S.n_stems_of(params), 8, 0.0)
+        loss, grads, got = {}, {}, {}
+        for dev in ("cpu", "cuda"):
+            opt = TP.make_optimizer(1e-3, 2500)
+            params, state, _, _ = TP.load_ckpt(ckpt, opt, dev)
+            dil = S.arch_of(params)[0]
+            m, c = torch.from_numpy(mix).to(dev), torch.from_numpy(clean).to(dev)
+            leaves = {k: v.clone().requires_grad_(True) for k, v in params.items()}
+            with exact_kernels():
+                g = torch.autograd.grad(TP.loss_fn(leaves, m, c, dil), list(leaves.values()))
+            grads[dev] = {k: v.cpu() for k, v in zip(leaves, g)}
+            step = TP.make_train_step(opt, dil)
+
+            def run():
+                loss[dev] = float(step(params, state, m, c)[1])
+
+            peak = _peak_bytes(run) if dev == "cuda" else run()
+            got[dev] = {k: v.cpu() for k, v in params.items()}
+        rel = abs(loss["cuda"] - loss["cpu"]) / abs(loss["cpu"])
+        g_err = max((float((grads["cuda"][k] - grads["cpu"][k]).abs().max())
+                     / float(grads["cpu"][k].abs().max()), k) for k in grads["cpu"])
+        def first_update(g):
+            return 1e-3 * g.double() / (g.double().abs() + 1e-8)
+
+        worst, moved, off = 0.0, 0, []
+        for k, ref in got["cpu"].items():
+            diff = (got["cuda"][k] - ref).abs().double()
+            scale = float(ref.abs().max())
+            worst = max(worst, float(diff.max()) / scale)
+            moved += int((diff > 1e-5 * scale).sum())
+            parted = (first_update(grads["cuda"][k]) - first_update(grads["cpu"][k])).abs()
+            if bool((diff > parted + 1e-5 * scale).any()):
+                off.append(k)
+        print(f"tools train_separator {label}: first step card vs CPU, loss {loss['cuda']:.7f} / "
+              f"{loss['cpu']:.7f} (rel {rel:.3g}, tolerance 1e-5); gradients within "
+              f"{g_err[0]:.3g} of their scale ({g_err[1]}; tolerance 1e-4); parameters within "
+              f"{worst:.3g} of their scale, {moved} elements above 1e-5, each within 1e-5 + "
+              f"the first update's difference for the two gradients")
+        if rel > 1e-5 or g_err[0] > 1e-4 or off:
+            raise AssertionError(f"train_separator {label}: the card's first step is not the "
+                                 f"CPU's ({off})")
+        return peak
+
+    with tempfile.TemporaryDirectory() as d:
+        for arch in ("v2", "v2x4"):
+            params = TP.init_params(arch, 0, "cpu")
+            opt = TP.make_optimizer(1e-3, 2500)
+            TP.save_ckpt(os.path.join(d, arch + ".npz"), params, opt.init(params), 0,
+                         np.random.default_rng(0))
+        peak = compare("v2 (batch 8)", os.path.join(d, "v2.npz"))
+        compare("v2x4 (batch 8)", os.path.join(d, "v2x4.npz"))
+        opt = TP.make_optimizer(1e-3, 2500)
+        params, state, start, rng = TP.load_ckpt(os.path.join(d, "v2.npz"), opt, "cuda")
+    t0 = time.perf_counter()
+    _, losses = TP.train(params, opt, state, rng, start, SEPARATOR_STEPS, 8,
+                         log_every=SEPARATOR_STEPS)
+    train_ms = 1e3 * (time.perf_counter() - t0) / SEPARATOR_STEPS
+    brng = np.random.default_rng(5)
+    t0 = time.perf_counter()
+    mix, clean = TP.make_batch(brng, 8)
+    for _ in range(4):
+        TP.make_batch(brng, 8)
+    batch_ms = 1e3 * (time.perf_counter() - t0) / 5
+    step = TP.make_train_step(opt, S.arch_of(params)[0])
+    holder = [state]
+    mix, clean = torch.from_numpy(mix).cuda(), torch.from_numpy(clean).cuda()
+    step_ms = _wall_ms(lambda: holder.__setitem__(0, step(params, holder[0], mix, clean)[0]), 10)
+    early, late = float(np.mean(losses[:5])), float(np.mean(losses[-5:]))
+    print(f"tools train_separator v2 on {smi}: {SEPARATOR_STEPS} steps at batch 8, loss "
+          f"{losses[0]:.5f} -> {losses[-1]:.5f} (mean of the first / last 5: {early:.5f} / "
+          f"{late:.5f}); {train_ms:.1f} ms a step in the tool's loop, of which make_batch on "
+          f"the host {batch_ms:.1f} ms and the device step alone {step_ms:.2f} ms (host clock, "
+          f"synchronized); the step's peak {peak / 2**20:.1f} MiB above the parameters and "
+          f"the optimizer's state")
+    if not late < early:
+        raise AssertionError(f"train_separator: losses {losses}")
+
+
+def _tools_calibrate() -> None:
+    """``tools/calibrate.py --synth`` at the tool's default corpus (12 VAD
+    clips, 6 speakers x 3 utterances, 12 dedup pairs): the card's JSON equals
+    the ``--cpu`` run's."""
+    import io
+    import tempfile
+
+    from realtime_whisper_asr_tpu_torch.tools import calibrate
+
+    out = {}
+    with tempfile.TemporaryDirectory() as d:
+        for dev, extra in (("cuda", []), ("cpu", ["--cpu"])):
+            path = os.path.join(d, f"{dev}.json")
+            with contextlib.redirect_stdout(io.StringIO()):
+                rc = calibrate.main([os.path.join(d, dev), "--synth", "--out", path] + extra)
+            if rc != 0:
+                raise AssertionError(f"calibrate on {dev} exited {rc}")
+            with open(path) as f:
+                out[dev] = json.load(f)
+    print(f"tools calibrate --synth: card == CPU {out['cuda'] == out['cpu']}; thresholds: VAD "
+          f"{out['cuda']['vad']['threshold']} (AUC {out['cuda']['vad']['auc']}), speaker "
+          f"{out['cuda']['speaker']['threshold']} (EER {out['cuda']['speaker']['eer']}), dedup "
+          f"{out['cuda']['dedup']['similarity_threshold']} / "
+          f"{out['cuda']['dedup']['duplicate_threshold']}")
+    if out["cuda"] != out["cpu"]:
+        raise AssertionError(f"calibrate: card {out['cuda']} != CPU {out['cpu']}")
+
+
+@contextlib.contextmanager
+def _token_cap(n: int):
+    """Every ``TorchWhisperASR`` built inside caps its windows at ``n`` tokens."""
+    from realtime_whisper_asr_tpu_torch.asr import TorchWhisperASR
+
+    init = TorchWhisperASR.__init__
+
+    def capped(self, *args, **kwargs):
+        init(self, *args, **kwargs)
+        self.transcribe_kargs.update(max_new_tokens=n, max_total_tokens=n)
+
+    TorchWhisperASR.__init__ = capped
+    try:
+        yield
+    finally:
+        TorchWhisperASR.__init__ = init
+
+
+def _tools_drill() -> int:
+    """``tools/checkpoint_drill.py`` on the golden test-tiny weights written
+    as an HF directory in bf16 (``write_hf_dir``; the drill's conversion
+    stores bf16, so the weights are bf16-exact from the start), its ASRs at
+    f32 with ``DRILL_TOKENS``-token caps: every step ok on the card, and its
+    decoded tokens equal to the CPU drill's. -> K1's launches on the card."""
+    import io
+    import tempfile
+
+    import torch
+
+    from realtime_whisper_asr_tpu_torch.models.whisper.config import get_config
+    from realtime_whisper_asr_tpu_torch.models.whisper.convert import load_flat_npz
+    from realtime_whisper_asr_tpu_torch.ops import logmel
+    from realtime_whisper_asr_tpu_torch.tools import checkpoint_drill
+
+    cfg = get_config("test-tiny")
+    state = {k: v.to(torch.bfloat16)
+             for k, v in load_flat_npz(os.path.join(GOLDEN, "params.npz")).items()}
+    runs = {}
+    with tempfile.TemporaryDirectory() as d, _token_cap(DRILL_TOKENS):
+        hf = os.path.join(d, "hf")
+        write_hf_dir(hf, cfg, state, checkpoint_heads(cfg))
+        for dev in ("cuda", "cpu"):
+            logmel.logmel_launches = 0
+            with contextlib.redirect_stdout(io.StringIO()):
+                runs[dev] = checkpoint_drill.run_drill(hf, os.path.join(d, dev), device=dev,
+                                                       dtype=torch.float32)
+            if dev == "cuda":
+                launches = logmel.logmel_launches
+    (card, card_tokens), (cpu, cpu_tokens) = runs["cuda"], runs["cpu"]
+    flags = {k: v["ok"] for k, v in card["steps"].items()}
+    print(f"tools checkpoint_drill (golden test-tiny, bf16 HF dir, f32, {DRILL_TOKENS}-token "
+          f"caps): card steps {flags}, s {[v['seconds'] for v in card['steps'].values()]}; "
+          f"tokens card == CPU {card_tokens == cpu_tokens} ({[len(t) for t in card_tokens]}); "
+          f"K1 launches {launches}")
+    if not card["ok"] or not cpu["ok"] or card_tokens != cpu_tokens or not launches:
+        raise AssertionError(f"checkpoint_drill: card {card} tokens {card_tokens}, CPU {cpu} "
+                             f"tokens {cpu_tokens}")
+    return launches
+
+
+def _soak_pass(label: str, smi: str, minutes: float, model: str,
+               config: dict | None) -> tuple[int, str]:
+    """One ``run_soak`` on the card with the ticks' host ms, the card's
+    memory after the warm-up decile and the rows each ``_encode_many``
+    encoded recorded around it: it must be ok, and K1's launches equal the
+    windows encoded -> (K1's launches, the tier the app ran)."""
+    import gc
+
+    import torch
+
+    from realtime_whisper_asr_tpu_torch.app import StreamingApp
+    from realtime_whisper_asr_tpu_torch.asr import TorchWhisperASR
+    from realtime_whisper_asr_tpu_torch.ops import logmel
+    from realtime_whisper_asr_tpu_torch.tools import soak
+
+    n_ticks = int(minutes * 60)
+    ticks, rows, seen = [], [0], {}
+    process_chunk, encode_many = StreamingApp.process_chunk, TorchWhisperASR._encode_many
+
+    def timed(self, *args, **kwargs):
+        t0 = time.perf_counter()
+        out = process_chunk(self, *args, **kwargs)
+        ticks.append(1e3 * (time.perf_counter() - t0))
+        if len(ticks) == n_ticks // 10 + 1:  # the soak's warm-up decile ends here
+            torch.cuda.synchronize()
+            seen["warm"] = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+        seen["tier"] = self.asr.quantization
+        seen["captures"] = self.asr.decode_loop.stats["captures"]
+        return out
+
+    def counted(self, keys, n_samples_list):
+        rows[0] += len(keys)
+        return encode_many(self, keys, n_samples_list)
+
+    StreamingApp.process_chunk, TorchWhisperASR._encode_many = timed, counted
+    logmel.logmel_launches = 0
+    try:
+        report = soak.run_soak(minutes, model=model, device="cuda", config=config)
+    finally:
+        StreamingApp.process_chunk, TorchWhisperASR._encode_many = process_chunk, encode_many
+    gc.collect()  # the session's app and ASR, freed
+    torch.cuda.synchronize()
+    launches = logmel.logmel_launches
+    growth = torch.cuda.max_memory_allocated() - seen["warm"]
+    after = torch.cuda.memory_allocated() - seen["warm"]
+    dec = max(len(ticks) // 10, 1)
+    second, last = np.asarray(ticks[dec:2 * dec]), np.asarray(ticks[-dec:])
+    print(f"tools soak {label} on {smi}: ok {report['ok']} {report['failures']}; tier "
+          f"{seen['tier']}; {report['ticks']} ticks of 1 s in {report['wall_seconds']} s (soak "
+          f"RTF {report['soak_rtf']}); tick p50/p95 second decile {np.median(second):.2f} / "
+          f"{np.percentile(second, 95):.2f} ms, last decile {np.median(last):.2f} / "
+          f"{np.percentile(last, 95):.2f} ms; graph_keys {report['graph_keys']}, recaptures "
+          f"after the warm-up {report['recaptures']}, captures {seen['captures']}; RSS growth "
+          f"{report['rss_mb_growth_after_warmup']} MB; the card's peak above the allocated at "
+          f"the warm-up's end {growth / 2**20:.1f} MiB, allocated after the session "
+          f"{after / 2**20:+.1f} MiB of it; audio buffer max {report['audio_buffer_s_max']} s, "
+          f"results {report['results']}; K1 launches {launches} = windows encoded {rows[0]}")
+    if not report["ok"] or launches != rows[0] or not launches:
+        raise AssertionError(f"soak {label}: {report}; K1 {launches} for {rows[0]} windows")
+    return launches, seen["tier"]
+
+
+def _tools_soak(smi: str) -> int:
+    """``tools/soak.py`` on the card: large-v3 ``int8-all`` at full width
+    (random weights from seed 0, ``phase_app``'s scenario-5 keys through the
+    soak's ``config``) for ``SOAK_FULL_MINUTES`` simulated minutes, then the
+    tool's default (test-tiny, 10 minutes); both ok, K1 launches = windows
+    encoded. -> K1's launches."""
+    import gc
+
+    full, tier = _soak_pass("large-v3 int8-all", smi, SOAK_FULL_MINUTES, "large-v3",
+                            {**APP_SCENARIO5, "model.max_tokens_per_second": 4.0})
+    if tier != "int8-all":
+        raise AssertionError(f"soak large-v3: the app ran {tier}, not int8-all")
+    gc.collect()
+    empty_device_cache("cuda")
+    tiny, _ = _soak_pass("test-tiny (the tool's default)", smi, SOAK_TINY_MINUTES, "test-tiny",
+                         None)
+    return full + tiny
+
+
+def _tools_example() -> int:
+    """``examples/offline_transcribe.py`` on golden clip 0 through a native
+    checkpoint of the golden weights, on the card at f32: its lines carry the
+    golden row's text. -> K1's launches."""
+    import io
+    import tempfile
+
+    from realtime_whisper_asr_tpu_torch.examples import offline_transcribe
+    from realtime_whisper_asr_tpu_torch.io import write_wav
+    from realtime_whisper_asr_tpu_torch.ops import logmel
+
+    with open(os.path.join(GOLDEN, "transcripts.json")) as f:
+        golden_text = json.load(f)["clips"][0]["offline_text"]
+    with tempfile.TemporaryDirectory() as d:
+        ckpt = golden_checkpoint(os.path.join(d, "ckpt"))
+        wav = os.path.join(d, "golden0.wav")
+        write_wav(wav, golden_audio(0))
+        buf = io.StringIO()
+        logmel.logmel_launches = 0
+        with contextlib.redirect_stdout(buf):
+            rc = offline_transcribe.main([wav, "--checkpoint", ckpt, "--dtype", "float32"])
+        launches = logmel.logmel_launches
+    texts = [ln.split("] ", 1)[1] for ln in buf.getvalue().splitlines() if "-->" in ln]
+    print(f"tools example offline_transcribe: golden clip 0 on the card, {len(texts)} segments, "
+          f"the first 8 the golden text {''.join(texts[:8]) == golden_text}; K1 launches "
+          f"{launches}")
+    if rc != 0 or "".join(texts[:8]) != golden_text or not launches:
+        raise AssertionError(f"offline_transcribe: {texts[:8]} is not {golden_text!r}")
+    return launches
+
+
+def phase_tools(smi: str) -> int:
+    """The offline tools and the examples on the card: the speaker and
+    separator trainers, calibration, the checkpoint drill, the soak and
+    ``offline_transcribe``. -> K1's launches (the drill's, the soaks', the
+    example's)."""
+    _tools_speaker(smi)
+    _tools_separator(smi)
+    _tools_calibrate()
+    return _tools_drill() + _tools_soak(smi) + _tools_example()
+
+
 def _parallel_decode(smi: str, model_size: str, device: str, mesh, d: str) -> int:
     """The tensor-parallel decode at 1 rank: the unsharded ASR's
     ``int8-all`` model saved in the native format, read back by
@@ -4280,15 +4678,18 @@ def main() -> int:
     torch.cuda.empty_cache()
     parallel_launches = run("parallel", phase_parallel, smi)
     run("train_vad", phase_train_vad)
+    tools_launches = run("tools", phase_tools, smi)
+    gc.collect()
+    torch.cuda.empty_cache()
     chain_launches = run("microbench", phase_microbench)
     src = "realtime_whisper_asr_tpu_torch/csrc/"
     entries = []
     for name, source, replaces, count, rows, main_row in (
         # K1: the large-v3 main path's launches, the app path's, the CLI's,
-        # the training path's and the parallel path's
+        # the training path's, the parallel path's and the tools'
         ("logmel", src + "logmel.cu", "realtime_whisper_asr_tpu/ops/logmel.py:76",
          launches[None]["logmel"] + app_launches + cli_launches + train_launches
-         + parallel_launches, logmel_rows, ("16 s", 128)),
+         + parallel_launches + tools_launches, logmel_rows, ("16 s", 128)),
         # the main path calls int4_linear (bf16, with bias): its row stands for
         # K2; the error is the largest over int4_matmul's and int4_linear's rows
         ("int4_linear", src + "int4_matmul.cu", "realtime_whisper_asr_tpu/ops/int4_matmul.py:44",

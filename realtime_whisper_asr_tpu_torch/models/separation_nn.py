@@ -86,6 +86,66 @@ def arch_of(params: dict) -> tuple[tuple[tuple[int, int], ...], int]:
     return ((1, 1),) * (n_layers + 1), in_ch
 
 
+#: v1 channels (1-channel input, dilation 1 everywhere)
+_CH = (16, 32, 16)
+V2_CHANNELS = (16, 24, 32, 24)
+#: the "small" variant: the same dilations, ~2.6x fewer MACs
+V2_SMALL_CHANNELS = (8, 12, 16, 12)
+
+
+def _conv_init(generator: torch.Generator, c_in: int, c_out: int, scale: float) -> torch.Tensor:
+    """A 3x3 kernel of standard normals times ``scale``, drawn in the JAX
+    layout's (3, 3, c_in, c_out) order, returned OIHW."""
+    w = torch.randn((3, 3, c_in, c_out), generator=generator) * scale
+    return w.permute(3, 2, 0, 1).contiguous()
+
+
+def init_separator_params(generator: torch.Generator, device="cuda") -> dict:
+    """v1 weights in the port's layout on ``device``: the JAX package's
+    ``init_separator_params`` shapes and scale (normal x 0.1, zero biases).
+    The draws are ``torch.randn``'s from ``generator``, not
+    ``jax.random.normal``'s: the same distribution, other numbers."""
+    dev = resolve_device(device)
+    params, c_in = {}, 1
+    for i, c in enumerate(_CH):
+        params[f"enc{i}_w"] = _conv_init(generator, c_in, c, 0.1).to(dev)
+        params[f"enc{i}_b"] = torch.zeros(c, device=dev)
+        c_in = c
+    params["out_w"] = _conv_init(generator, c_in, 1, 0.1).to(dev)
+    params["out_b"] = torch.zeros(1, device=dev)
+    return params
+
+
+def init_separator_params_v2(generator: torch.Generator, channels: tuple = V2_CHANNELS,
+                             n_stems: int = 1, device="cuda") -> dict:
+    """v2 trunk and mask head in the port's layout on ``device``: the JAX
+    package's ``init_separator_params_v2`` shapes and scales (normal x
+    (9·c_in)^-1/2, zero biases; a 2-channel input; ``n_stems`` 1 for the
+    sigmoid vocal mask, 4 for the softmax stem partition). The draws are
+    ``torch.randn``'s from ``generator``, not ``jax.random.normal``'s."""
+    dev = resolve_device(device)
+    params, c_in = {}, 2
+    for i, c in enumerate(channels):
+        params[f"enc{i}_w"] = _conv_init(generator, c_in, c, (9 * c_in) ** -0.5).to(dev)
+        params[f"enc{i}_b"] = torch.zeros(c, device=dev)
+        c_in = c
+    params["out_w"] = _conv_init(generator, c_in, n_stems, (9 * c_in) ** -0.5).to(dev)
+    params["out_b"] = torch.zeros(n_stems, device=dev)
+    return params
+
+
+def params_to_jax(params: dict) -> dict:
+    """The inverse of ``params_from_jax``: numpy f32 arrays, HWIO kernels,
+    the layout of the packaged npz files that both packages load."""
+    out = {}
+    for k, v in params.items():
+        t = v.detach().float().cpu()
+        if k.endswith("_w"):
+            t = t.permute(2, 3, 1, 0)  # OIHW -> HWIO
+        out[k] = np.ascontiguousarray(t.numpy())
+    return out
+
+
 def params_from_jax(params: dict, device="cuda") -> dict:
     """The JAX package's separator params (numpy or jax arrays, HWIO
     kernels) as the port's: f32 tensors on ``device``, OIHW kernels."""

@@ -30,6 +30,9 @@
   run_eval mains raise without CUDA unless asked for the CPU;
   ``prepare_batch`` reaches the log-mel wrapper only (no path to the plain
   version for a CUDA row), and the training code has no handler.
+- The speaker and separator trainers, calibration, the checkpoint drill,
+  the soak and the three examples import neither ``jax`` nor ``optax`` and
+  raise without CUDA unless asked for the CPU; the tools have no handler.
 - The ``parallel`` package imports neither ``jax`` nor the JAX package;
   ``init_distributed`` and ``finetune --mesh`` / ``--pipeline-stages``
   raise without CUDA unless asked for the CPU; no ``try`` in the package
@@ -120,6 +123,43 @@ def test_entry_points_refuse_missing_cuda(monkeypatch):
         silero_like.SileroLikeVAD()
     with pytest.raises(RuntimeError, match="CUDA"):
         silero_like.SileroLikeNet()
+
+
+@pytest.mark.parametrize("entry", [
+    "train_speaker", "train_separator", "calibrate", "checkpoint_drill", "soak",
+    "offline_transcribe", "streaming_from_wav", "serving_multistream",
+])
+def test_tools_and_examples_refuse_missing_cuda(monkeypatch, tmp_path, entry):
+    """The offline trainers, calibration, the checkpoint drill, the soak and
+    the examples, run without ``--cpu`` on a host without CUDA, raise before
+    they compute anything."""
+    from realtime_whisper_asr_tpu_torch.examples import (
+        offline_transcribe,
+        serving_multistream,
+        streaming_from_wav,
+    )
+    from realtime_whisper_asr_tpu_torch.tools import (
+        calibrate,
+        checkpoint_drill,
+        soak,
+        train_separator,
+        train_speaker,
+    )
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    calls = {
+        "train_speaker": lambda: train_speaker.main(["--out", str(tmp_path / "s.npz")]),
+        "train_separator": lambda: train_separator.main(["--out", str(tmp_path / "p.npz")]),
+        "calibrate": lambda: calibrate.main([str(tmp_path / "cal"), "--synth"]),
+        "checkpoint_drill": lambda: checkpoint_drill.main(["hf", "--work", str(tmp_path)]),
+        "soak": lambda: soak.run_soak(0.1),
+        "offline_transcribe": lambda: offline_transcribe.main(["a.wav", "--model", "test-tiny"]),
+        "streaming_from_wav": lambda: streaming_from_wav.main(["a.wav", "--model", "test-tiny"]),
+        "serving_multistream": lambda: serving_multistream.main(["--model", "test-tiny"]),
+    }
+    with pytest.raises(RuntimeError, match="CUDA"):
+        calls[entry]()
+    assert not os.listdir(tmp_path)
 
 
 def test_vad_and_ring_have_no_fallback():
@@ -364,7 +404,10 @@ _IMPORT_TRAIN_CLI = r"""
 import importlib, sys
 for name in ("cli", "eval", "utils.hardware", "utils.log_filter", "io.subtitles", "train",
              "train.optim", "train.train_step", "train.data", "tools.finetune",
-             "tools.train_vad", "tools.run_eval", "parallel", "parallel.mesh",
+             "tools.train_vad", "tools.run_eval", "tools.train_speaker",
+             "tools.train_separator", "tools.calibrate", "tools.checkpoint_drill", "tools.soak",
+             "examples.offline_transcribe", "examples.streaming_from_wav",
+             "examples.serving_multistream", "parallel", "parallel.mesh",
              "parallel.collectives", "parallel.sharding", "parallel.tp", "parallel.pipeline"):
     importlib.import_module("realtime_whisper_asr_tpu_torch." + name)
 bad = sorted(m for m in sys.modules
@@ -443,7 +486,9 @@ def test_prepare_batch_has_no_path_to_the_plain_logmel():
 
 
 @pytest.mark.parametrize("module", ["train.optim", "train.train_step", "tools.finetune",
-                                    "tools.train_vad"])
+                                    "tools.train_vad", "tools.train_speaker",
+                                    "tools.train_separator", "tools.calibrate",
+                                    "tools.checkpoint_drill", "tools.soak"])
 def test_training_code_has_no_fallback(module):
     import importlib
 
