@@ -24,7 +24,7 @@ Phases, each failing the run with a non-zero exit:
      debug mode: the loop's host checks only; its finalize's: one wait for
      the result copy's event, nothing else; at most 1 + ceil((max_new - 1)
      / K) in all); tick p50/p95, decode ms per token, the card's busy
-     share, a PhaseTimer split of a tick and the graphs' captures, capture
+     share, a span split of a tick and the graphs' captures, capture
      seconds and memory, beside the eager loop's figures;
      then the graph path's packed result against the same step run
      uncaptured on the card, bit for bit, at the 16 s and 8 s windows, each
@@ -75,7 +75,7 @@ Phases, each failing the run with a non-zero exit:
      4 tokens a second: the graph path bit-equal to the uncaptured loop at
      this tier, a warm-up pass and 2 runs of 16 s with K1's launches equal to
      the windows encoded and no logged error; median RTF, apply latency
-     p50/p95, plan kinds, h2d bytes a window, captures, a PhaseTimer split;
+     p50/p95, plan kinds, h2d bytes a window, captures, a span split;
  12. batched multi-stream serving (``phase_serving``): the port's
      StreamServer on the golden f32 weights commits on the card what it
      commits on the CPU (3 streams, batched and pipelined), and
@@ -131,7 +131,7 @@ Phases, each failing the run with a non-zero exit:
      music-backed speech, a warm-up and a timed 16 s pass): RTF, results
      and skips, K1 launches = windows encoded, no capture, the separation's
      device ms a window beside the encode's, the frontend's peak memory a
-     row beside ``_row_bytes``' reserve for it, a PhaseTimer split.
+     row beside ``_row_bytes``' reserve for it, a span split.
  16. the command line and training: ``phase_cli`` runs the port's CLI as a
      user does: ``detect`` names the card and recommends from its memory,
      ``transcribe`` of golden clip 0 on the golden weights (a native
@@ -324,6 +324,21 @@ def sync_device(device) -> None:
     from realtime_whisper_asr_tpu_torch.utils.profiling import sync_device as sync
 
     sync(torch_device(device))
+
+
+def span_split(since: float) -> str:
+    """The program's spans that started at or after ``since`` (host clock):
+    each span's host ms and self ms (less its child spans) per dispatch (a
+    tick's or a group's ``asr.dispatch``), in start order. Spans wait for
+    nothing, so this is where the host's time went; a wait for the card
+    shows as the span it sits in (``decode.check``, ``asr.fetch_wait``)."""
+    from realtime_whisper_asr_tpu_torch.utils.profiling import span_report
+
+    report = span_report(since=since)
+    n = max(report.get("asr.dispatch", {}).get("count", 0), 1)
+    return f"over {n} dispatches: " + ", ".join(
+        f"{k} {1e3 * v['total_s'] / n:.2f} (self {1e3 * v['self_s'] / n:.2f})"
+        for k, v in report.items())
 
 
 def empty_device_cache(device) -> None:
@@ -884,7 +899,6 @@ def phase_full_width(guard: FailOnLog, quantization: str | None = None) -> dict:
     from realtime_whisper_asr_tpu_torch.asr import TorchWhisperASR
     from realtime_whisper_asr_tpu_torch.models.whisper import decode as D
     from realtime_whisper_asr_tpu_torch.ops import int4_matmul, logmel
-    from realtime_whisper_asr_tpu_torch.utils.profiling import PhaseTimer, measure_sync_floor
 
     label = f"large-v3 {quantization or 'bf16'}"
     t0 = time.perf_counter()
@@ -1035,20 +1049,14 @@ def phase_full_width(guard: FailOnLog, quantization: str | None = None) -> dict:
     # the stream again, every loop shape it meets captured already
     warm_ms: list[float] = []
     captures = loop.stats["captures"]
+    since = time.perf_counter()
     run_stream(asr, stream_audio, guard, warm_ms)
     p50, p95 = np.percentile(warm_ms, [50, 95])
     print(f"{label}: the stream again with its graphs captured "
           f"({loop.stats['captures'] - captures} new captures): tick p50 {p50:.1f} ms p95 "
           f"{p95:.1f} ms")
-    # a tick's phases: the stream once more, the timer syncing at each boundary
-    asr.phase_timer = PhaseTimer()
-    run_stream(asr, stream_audio, guard)
-    report = asr.phase_timer.report()
-    asr.phase_timer = None
-    n = report["decode"]["count"]
-    print(f"{label}: PhaseTimer split of a tick (mean ms over {n} ticks; sync floor "
-          f"{measure_sync_floor():.3f} ms): "
-          + ", ".join(f"{k} {v['mean_ms']}" for k, v in report.items()))
+    print(f"{label}: span split of those ticks, mean host ms a dispatch "
+          f"{span_split(since)}")
     check_graph_equals_uncaptured(asr, label, offline_audio, stream_audio)
     phase_pipelined(asr, guard, label, rows, int4)
     return launches
@@ -1525,8 +1533,8 @@ def phase_headline(guard: FailOnLog, smi: str) -> int:
     p50/p95 of ``last_apply_latency_s`` over the ticks that committed text,
     the plan kinds, h2d_bytes per window beside the whole-window upload's,
     the captures after the warm-up, the ASR's dispatch and finalize host ms,
-    the new tokens and replays, the loop shapes; then a PhaseTimer split of
-    one more pass. -> K1's launches."""
+    the new tokens and replays, the loop shapes, and a span split of the
+    runs. -> K1's launches."""
     import torch
 
     from realtime_whisper_asr_tpu_torch.asr import TorchWhisperASR
@@ -1538,7 +1546,6 @@ def phase_headline(guard: FailOnLog, smi: str) -> int:
         VACOnlineASRProcessor,
         VADIterator,
     )
-    from realtime_whisper_asr_tpu_torch.utils.profiling import PhaseTimer
 
     label = "headline large-v3 int8-all"
     t0 = time.perf_counter()
@@ -1584,6 +1591,7 @@ def phase_headline(guard: FailOnLog, smi: str) -> int:
     asr._transcribe_window_dispatch = timed(asr._transcribe_window_dispatch, "dispatch")
     asr._transcribe_window_finalize = timed(asr._transcribe_window_finalize, "finalize")
     rtfs, latency_ms, ticks = [], [], 0
+    since = time.perf_counter()
     # ---- the VAC path, with K1's launch count read around it
     with UploadProbe(asr) as uploads:
         logmel.logmel_launches = 0
@@ -1604,6 +1612,7 @@ def phase_headline(guard: FailOnLog, smi: str) -> int:
             rtfs.append(busy / HEADLINE_SECONDS)
         launches = logmel.logmel_launches
     # ----
+    split = span_split(since)
     del loop.loop, asr._transcribe_window_dispatch, asr._transcribe_window_finalize
     graphs = {k: loop.stats[k] - stats0[k] for k in loop.stats}
     if guard.records:
@@ -1624,20 +1633,7 @@ def phase_headline(guard: FailOnLog, smi: str) -> int:
           f"{graphs['captures']} captures after the warm-up pass")
     finalized = asr.counters["ticks"] - counters0["ticks"]
     new_tokens = asr.counters["new_tokens"] - counters0["new_tokens"]
-    # a tick's phases: the stream once more, the timer syncing at each boundary
-    asr.phase_timer = PhaseTimer()
-    vac.init()
-    for pos in range(0, len(audio), SR):
-        vac.insert_audio_chunk(audio[pos : pos + SR])
-        vac.process_iter()
-    vac.finish()
-    report = asr.phase_timer.report()
-    asr.phase_timer = None
-    if guard.records:
-        raise AssertionError(f"{label}: the VAC loop swallowed an exception: {guard.records}")
-    print(f"{label} on {smi}: PhaseTimer split of a tick, the stream once more (mean ms over "
-          f"{report['decode']['count']} ticks): "
-          + ", ".join(f"{k} {v['mean_ms']}" for k, v in report.items()))
+    print(f"{label} on {smi}: span split of the runs, mean host ms a dispatch {split}")
     print(f"{label} on {smi}: where a run's time goes: ASR dispatch p50 "
           f"{np.median(half_ms['dispatch']):.1f} ms (sum {sum(half_ms['dispatch']) / 1e3:.2f} "
           f"s), finalize p50 {np.median(half_ms['finalize']):.2f} ms; "
@@ -1835,13 +1831,12 @@ def run_capacity(asr, n: int, seconds: int, label: str, guard: FailOnLog) -> dic
     a server with no VAD, 0.5 s online chunks, prefix policy "last" and
     ``max_batch`` max(N, 2); ``synthetic_speech(seconds)`` to every stream, 1
     s at a time, then ``step()`` until idle; a warm-up pass, the processors
-    reset and the counters zeroed in place, then the timed pass (and once
-    more under a PhaseTimer, for a group's split), with K1's
-    launches, the batch sizes, each group's dispatch ms, the rows encoded
-    and the loop's captures read around it. The ASR gets a new DecodeLoop,
-    and the peak memory over both passes is read against the memory
-    allocated before them (the model): what N streams add, their graphs'
-    state buffers and pool included."""
+    reset and the counters zeroed in place, then the timed pass, with K1's
+    launches, the batch sizes, each group's dispatch ms, the rows encoded,
+    the loop's captures and a span split of a group read around it. The
+    ASR gets a new DecodeLoop, and the peak memory over both passes is read
+    against the memory allocated before them (the model): what N streams
+    add, their graphs' state buffers and pool included."""
     import gc
 
     import torch
@@ -1850,7 +1845,6 @@ def run_capacity(asr, n: int, seconds: int, label: str, guard: FailOnLog) -> dic
     from realtime_whisper_asr_tpu_torch.ops import logmel
     from realtime_whisper_asr_tpu_torch.serving import StreamServer
     from realtime_whisper_asr_tpu_torch.services import PerformanceMonitor
-    from realtime_whisper_asr_tpu_torch.utils.profiling import PhaseTimer
 
     asr.decode_loop = loop = D.DecodeLoop()
     gc.collect()  # the previous loop's graphs and state buffers
@@ -1894,6 +1888,7 @@ def run_capacity(asr, n: int, seconds: int, label: str, guard: FailOnLog) -> dic
     wall = time.perf_counter() - t0
     launches = logmel.logmel_launches
     # ----
+    split = span_split(t0)
     del asr.transcribe_batch_dispatch, asr._encode_many
     peak = torch.cuda.max_memory_allocated()
     # the allocator's fragmentation at the peak, and what lies outside it
@@ -1903,13 +1898,6 @@ def run_capacity(asr, n: int, seconds: int, label: str, guard: FailOnLog) -> dic
     outside = total - free - torch.cuda.memory_reserved()
     graphs = {k: loop.stats[k] - stats0[k] for k in loop.stats}
     counters = dict(asr.counters)
-    # a group's phases: the pass once more, the timer syncing at each boundary
-    for sid in sids:
-        server.streams[sid].processor.init()
-    asr.phase_timer = PhaseTimer()
-    serve_streams(server, sids, [audio] * n)
-    split = asr.phase_timer.report()
-    asr.phase_timer = None
     if server.group_failures or guard.records:
         raise AssertionError(f"{label} N={n}: {server.group_failures} group failures, logged "
                              f"errors {guard.records}")
@@ -2034,7 +2022,7 @@ def phase_serving(guard: FailOnLog, smi: str) -> dict:
        tokens, group failures (must be 0), batch sizes, group dispatch ms
        p50, captures after the warm-up, K1 launches = rows encoded, peak
        memory and its growth per row beside ``_hbm_safe_batch``'s estimate,
-       a PhaseTimer split of a group; the decode step's kernel split at
+       a span split of a group; the decode step's kernel split at
        B = 8 and B = 1;
     4. the int4 tier once at N = 8 over 8 s: K2's launches equal the count
        predicted from the run's cross-K/V calls, prefill spans and loop
@@ -2096,9 +2084,8 @@ def phase_serving(guard: FailOnLog, smi: str) -> dict:
               f"memory {run['peak'] / 2**30:.2f} GiB, {(run['peak'] - run['base']) / 2**20:.1f} "
               f"MiB above the model's {run['base'] / 2**30:.2f} GiB; device_batch_cap "
               f"{run['cap']}")
-        print(f"{label} on {smi}: N={n}: PhaseTimer split of a group, the pass once more (mean "
-              f"ms over {run['split']['decode']['count']} groups): "
-              + ", ".join(f"{k} {v['mean_ms']}" for k, v in run["split"].items()))
+        print(f"{label} on {smi}: N={n}: span split of the timed pass, mean host ms a group "
+              f"{run['split']}")
     big, one = runs[SERVING_STREAMS[0]], runs[SERVING_STREAMS[1]]
     growth = ((big["peak"] - big["base"]) - (one["peak"] - one["base"])) / (big["n"] - one["n"])
     check_row_memory(asr, label, smi, big, growth,
@@ -2129,8 +2116,8 @@ def phase_serving(guard: FailOnLog, smi: str) -> dict:
           f"p50 {np.median(run['dispatch_ms']):.1f} ms; {run['graphs']['captures']} captures "
           f"after the warm-up; rows encoded {run['rows']} = K1 launches {run['launches']}; peak "
           f"{(run['peak'] - run['base']) / 2**20:.1f} MiB above the model's "
-          f"{run['base'] / 2**30:.2f} GiB; PhaseTimer split of a group: "
-          + ", ".join(f"{k} {v['mean_ms']}" for k, v in run["split"].items()))
+          f"{run['base'] / 2**30:.2f} GiB; span split, mean host ms a group "
+          f"{run['split']}")
     # one N: the growth a row bounded by everything above the model over N
     check_row_memory(asr, label, smi, run, (run["peak"] - run["base"]) / n,
                      f"N={n}: all the peak above the model over {n} rows, an upper bound")
@@ -2505,8 +2492,7 @@ def phase_beam(guard: FailOnLog, smi: str) -> None:
           f"{run['new_tokens']} new tokens; batch sizes {sorted(set(run['sizes']))}; group "
           f"dispatch p50 {np.median(run['dispatch_ms']):.1f} ms; {run['graphs']['captures']} "
           f"captures after the warm-up; rows encoded {run['rows']} = K1 launches "
-          f"{run['launches']}; PhaseTimer split of a group: "
-          + ", ".join(f"{k} {v['mean_ms']}" for k, v in run["split"].items()))
+          f"{run['launches']}; span split, mean host ms a group {run['split']}")
     check_row_memory(asr, label, smi, run, (run["peak"] - run["base"]) / BEAM_STREAMS,
                      f"N={BEAM_STREAMS}: all the peak above the model over {BEAM_STREAMS} "
                      f"streams, an upper bound")
@@ -3011,8 +2997,8 @@ def phase_app(guard: FailOnLog, smi: str) -> int:
     no capture and no swallowed exception. Prints the RTF, results and
     skips, the separation's device ms a window beside the encode's, the
     frontend's peak memory a row at the 30 s bucket beside what
-    ``_row_bytes`` reserves for it (a breach fails), and a PhaseTimer split
-    of one more (synchronous) pass. -> K1's launches."""
+    ``_row_bytes`` reserves for it (a breach fails), and a span split of
+    the timed pass. -> K1's launches."""
     import torch
 
     from realtime_whisper_asr_tpu_torch import serving
@@ -3022,7 +3008,6 @@ def phase_app(guard: FailOnLog, smi: str) -> int:
     from realtime_whisper_asr_tpu_torch.models import separation_nn as SEP
     from realtime_whisper_asr_tpu_torch.ops import logmel
     from realtime_whisper_asr_tpu_torch.services import PerformanceMonitor
-    from realtime_whisper_asr_tpu_torch.utils.profiling import PhaseTimer
 
     label = "app scenario 5 large-v3 int8-all"
     cm = ConfigManager(autoload=False)
@@ -3042,7 +3027,7 @@ def phase_app(guard: FailOnLog, smi: str) -> int:
     print(f"{label}: app built in {time.perf_counter() - t0:.1f} s (random init, int8 "
           f"quantization, the packaged separator fused, VAD {type(app.processor.vac.prob_fn).__name__})")
     audio = music_backed_speech(APP_SECONDS)
-    stream = SimulatedMicStream(np.concatenate([audio] * 3))  # warm-up, timed, PhaseTimer
+    stream = SimulatedMicStream(np.concatenate([audio] * 2))  # warm-up, timed
     t0 = time.perf_counter()
     app.record_session(stream, chunk_seconds=1.0, max_seconds=APP_SECONDS, until_exhausted=False)
     torch.cuda.synchronize()
@@ -3070,6 +3055,7 @@ def phase_app(guard: FailOnLog, smi: str) -> int:
     wall = time.perf_counter() - t0
     launches = logmel.logmel_launches
     # ----
+    split = span_split(t0)
     del asr._encode_many, app.processor.insert_audio_chunk, app.processor.process_iter
     captures = loop.stats["captures"] - stats0["captures"]
     if guard.records:
@@ -3118,20 +3104,9 @@ def phase_app(guard: FailOnLog, smi: str) -> int:
     if one > reserved or four > 4 * reserved or row_on - row_off != reserved:
         raise AssertionError(f"{label}: the separation's transient exceeds what _row_bytes "
                              f"reserves")
-    # a tick's phases: synchronous ticks (the timer waits at each boundary)
-    app.processor.init()
-    app._pipeline_auto = False
-    app.online.set_pipeline(False)
-    asr.phase_timer = PhaseTimer()
-    app.record_session(stream, chunk_seconds=1.0, max_seconds=APP_SECONDS, until_exhausted=False)
-    report = asr.phase_timer.report()
-    asr.phase_timer = None
     app.shutdown()
-    if guard.records:
-        raise AssertionError(f"{label}: the session swallowed an exception: {guard.records}")
-    print(f"{label} on {smi}: PhaseTimer split of a synchronous tick (mean ms over "
-          f"{report['decode']['count']} ticks; encode includes the separation): "
-          + ", ".join(f"{k} {v['mean_ms']}" for k, v in report.items()))
+    print(f"{label} on {smi}: span split of the timed pass (encode includes the separation), "
+          f"mean host ms a dispatch {split}")
     return launches
 
 

@@ -74,7 +74,7 @@ from realtime_whisper_asr_tpu_torch.models.whisper.load import load_checkpoint_d
 from realtime_whisper_asr_tpu_torch.models.whisper.model import Whisper, encoder_flops, init_params
 from realtime_whisper_asr_tpu_torch.models.whisper.tokenizer import Tokenizer, get_tokenizer
 from realtime_whisper_asr_tpu_torch.ops.logmel import log_mel_spectrogram
-from realtime_whisper_asr_tpu_torch.utils.profiling import sync_device
+from realtime_whisper_asr_tpu_torch.utils.profiling import new_rid, span
 
 logger = logging.getLogger(__name__)
 
@@ -272,11 +272,6 @@ class TorchWhisperASR:
         #: the decode loop of every window: on the card its CUDA graphs, one
         #: per loop shape, captured at a shape's first window
         self.decode_loop = D.DecodeLoop()
-        #: optional utils.profiling.PhaseTimer: when set, _transcribe_window
-        #: waits for the card at each phase boundary and laps upload, encode,
-        #: decode, download and host_parse. Diagnostic mode: the waits
-        #: serialize work the host otherwise queues ahead.
-        self.phase_timer = None
         #: one tick (window) = one h2d transfer, one log-mel launch, one
         #: encode; a prefetch (``prefetch_audio``) is one h2d transfer more; a
         #: batched tick of B streams is one transfer, B log-mel launches and
@@ -493,14 +488,18 @@ class TorchWhisperASR:
         at the group's largest window bucket (each ring is zero past its
         audio), separated as one batch when the frontend is set, K1 once
         per row, one ``model.encode`` of the stack."""
-        nb = max(self._window_bucket(n) for n in n_samples_list)
-        self.counters["encode_flops"] += len(keys) * encoder_flops(self.cfg, nb // (2 * 160))
-        windows = [self._buffers[k][0][:nb] for k in keys]
-        if self._sep_frontend is not None:
-            sep, dil = self._sep_frontend
-            windows = SEP.separate_vocals(sep, torch.stack(windows), dil=dil).unbind(0)
-        mels = [log_mel_spectrogram(w, n_mels=self.cfg.n_mels) for w in windows]
-        return self.model.encode(torch.stack(mels).to(self.model.dtype))
+        with span("encode"):
+            nb = max(self._window_bucket(n) for n in n_samples_list)
+            self.counters["encode_flops"] += len(keys) * encoder_flops(self.cfg, nb // (2 * 160))
+            windows = [self._buffers[k][0][:nb] for k in keys]
+            if self._sep_frontend is not None:
+                sep, dil = self._sep_frontend
+                with span("encode.separate"):
+                    windows = SEP.separate_vocals(sep, torch.stack(windows), dil=dil).unbind(0)
+            with span("encode.logmel"):
+                mels = [log_mel_spectrogram(w, n_mels=self.cfg.n_mels) for w in windows]
+            with span("encode.model"):
+                return self.model.encode(torch.stack(mels).to(self.model.dtype))
 
     def set_separation_frontend(self, sep_params) -> None:
         """Fuse a trained spectral-mask separator into the encode: every
@@ -617,61 +616,58 @@ class TorchWhisperASR:
         rows are dropped in the finalize. With ``beam_size`` > 1 the decode
         is B streams' beam searches in one loop, each stream stopping on its
         own (``beam.beam_decode_batch_dispatch``); drafts are dropped."""
-        n_real = len(items)
-        padded = list(items)
-        while len(padded) & (len(padded) - 1):
-            padded.append(padded[-1])
-        opts = self._make_opts()
-        keys, audios, requests = [], [], []
-        beam = opts.beam_size > 1
-        for it in padded:
-            prompt = it.get("init_prompt") or ""
-            requests.append({"prompt_tokens": self.tokenizer.encode(prompt) if prompt else None,
-                             "prefix_tokens": it.get("prefix_ids"),
-                             "draft_tokens": None if beam else it.get("draft_ids"),
-                             "seed": self._sample_seed})
-            audios.append(np.asarray(it["audio"], np.float32))
-            keys.append(it["key"])
-        plan = D.plan_batch_aux(self.cfg, opts, requests)
-        cap_slot = D.AUX_TOK + 4
-        for row, audio in zip(plan.rows, audios):  # each row's per-second cap
-            row.aux[cap_slot] = self._density_cap(row.cap, row.n_prefix, len(audio))
-        pt = self.phase_timer
-        if pt is not None:
-            pt.mark()
-        aux_dev = self._sync_many(keys, audios, plan.aux)
-        if pt is not None:
-            sync_device(self.device)
-            pt.lap("upload")
-        xa = self._encode_many(keys, [len(a) for a in audios])
-        if pt is not None:
-            sync_device(self.device)
-            pt.lap("encode")
-        dispatch = BM.beam_decode_batch_dispatch if beam else D.greedy_decode_batch_dispatch
-        handle = dispatch(
-            self.model, xa, opts, plan, aux_dev, extra_suppress=self._extra_suppress,
-            alignment_heads=self.alignment_heads, loop=self.decode_loop, phase_timer=pt)
+        rid = new_rid()
+        with span("asr.dispatch", rid=rid):
+            n_real = len(items)
+            padded = list(items)
+            while len(padded) & (len(padded) - 1):
+                padded.append(padded[-1])
+            with span("asr.plan"):
+                opts = self._make_opts()
+                keys, audios, requests = [], [], []
+                beam = opts.beam_size > 1
+                for it in padded:
+                    prompt = it.get("init_prompt") or ""
+                    requests.append({
+                        "prompt_tokens": self.tokenizer.encode(prompt) if prompt else None,
+                        "prefix_tokens": it.get("prefix_ids"),
+                        "draft_tokens": None if beam else it.get("draft_ids"),
+                        "seed": self._sample_seed})
+                    audios.append(np.asarray(it["audio"], np.float32))
+                    keys.append(it["key"])
+                plan = D.plan_batch_aux(self.cfg, opts, requests)
+                cap_slot = D.AUX_TOK + 4
+                for row, audio in zip(plan.rows, audios):  # each row's per-second cap
+                    row.aux[cap_slot] = self._density_cap(row.cap, row.n_prefix, len(audio))
+            with span("asr.upload"):
+                aux_dev = self._sync_many(keys, audios, plan.aux)
+            xa = self._encode_many(keys, [len(a) for a in audios])
+            dispatch = BM.beam_decode_batch_dispatch if beam else D.greedy_decode_batch_dispatch
+            handle = dispatch(
+                self.model, xa, opts, plan, aux_dev, extra_suppress=self._extra_suppress,
+                alignment_heads=self.alignment_heads, loop=self.decode_loop)
         return {"handle": handle, "items": items, "requests": requests, "n_real": n_real,
-                "beam": beam}
+                "beam": beam, "rid": rid}
 
     def transcribe_batch_finalize(self, st: dict) -> list[TranscriptionResult]:
         """The second half of ``transcribe_batch``: wait for the result's
         copy, then parse each real row's segments and tokens."""
         items, requests, n_real = st["items"], st["requests"], st["n_real"]
         finalize = BM.beam_decode_batch_finalize if st["beam"] else D.greedy_decode_batch_finalize
-        results = finalize(st["handle"])
-        out = []
-        for it, res, req in zip(items[:n_real], results[:n_real], requests[:n_real]):
-            n_frames = min(len(it["audio"]) // (2 * 160), self.cfg.n_audio_ctx)
-            segs = self._parse_segments(res, n_frames, 0.0)
-            ids = res.tokens[0][: res.lengths[0]].tolist()
-            if ids and ids[-1] == self.cfg.eot:
-                ids = ids[:-1]
-            out.append(TranscriptionResult(segs, tokens=ids))
-            self.counters["ticks"] += 1
-            self.counters["new_tokens"] += int(res.lengths[0]) - len(req["prefix_tokens"] or [])
-        if self.phase_timer is not None:
-            self.phase_timer.lap("host_parse")
+        with span("asr.finalize", rid=st["rid"]):
+            results = finalize(st["handle"])
+            out = []
+            with span("asr.parse"):
+                for it, res, req in zip(items[:n_real], results[:n_real], requests[:n_real]):
+                    n_frames = min(len(it["audio"]) // (2 * 160), self.cfg.n_audio_ctx)
+                    segs = self._parse_segments(res, n_frames, 0.0)
+                    ids = res.tokens[0][: res.lengths[0]].tolist()
+                    if ids and ids[-1] == self.cfg.eot:
+                        ids = ids[:-1]
+                    out.append(TranscriptionResult(segs, tokens=ids))
+                    self.counters["ticks"] += 1
+                    self.counters["new_tokens"] += (int(res.lengths[0])
+                                                    - len(req["prefix_tokens"] or []))
         return out
 
     @torch.inference_mode()
@@ -738,62 +734,59 @@ class TorchWhisperASR:
         device_draft: Optional[dict] = None,
     ) -> dict:
         cfg = self.cfg
-        opts = self._make_opts()
-        beam = opts.beam_size > 1
-        if prompt_ids is None:
-            prompt_ids = self.tokenizer.encode(init_prompt) if init_prompt else None
-        if beam:  # a beam search verifies no draft, host or device
-            draft_ids = device_draft = None
-        plan = D.plan_window(cfg, opts, prompt_ids, prefix_ids, draft_ids,
-                             force_draft_bucket=device_draft is not None,
-                             seed=self._sample_seed)
-        cap_slot = D.AUX_TOK + 4  # the exact cap the plan put in the aux bundle
-        plan.aux[cap_slot] = self._density_cap(int(plan.aux[cap_slot]), plan.n_prefix,
-                                               len(audio))
-        pt = self.phase_timer
-        if pt is not None:
-            pt.mark()
-        aux_dev = self._sync_audio_and_aux(audio, plan.aux)
-        if device_draft is not None:
-            D.patch_aux_device_draft(
-                aux_dev.view(1, D.AUX_LEN), device_draft["packed"], device_draft["offset"],
-                device_draft["max_new"], device_draft["row_len"], cfg.eot,
-                force=device_draft["force"], safety=device_draft["safety"])
-        if pt is not None:
-            sync_device(self.device)
-            pt.lap("upload")
-        xa = self._encode_from_buf(len(audio))
-        if pt is not None:
-            sync_device(self.device)
-            pt.lap("encode")
-        dispatch = BM.beam_decode_dispatch if beam else D.greedy_decode_dispatch
-        handle = dispatch(
-            self.model, xa, opts, plan, aux_dev,
-            extra_suppress=self._extra_suppress, alignment_heads=self.alignment_heads,
-            loop=self.decode_loop, phase_timer=pt,
-        )
+        rid = new_rid()
+        with span("asr.dispatch", rid=rid):
+            with span("asr.plan"):
+                opts = self._make_opts()
+                beam = opts.beam_size > 1
+                if prompt_ids is None:
+                    prompt_ids = self.tokenizer.encode(init_prompt) if init_prompt else None
+                if beam:  # a beam search verifies no draft, host or device
+                    draft_ids = device_draft = None
+                plan = D.plan_window(cfg, opts, prompt_ids, prefix_ids, draft_ids,
+                                     force_draft_bucket=device_draft is not None,
+                                     seed=self._sample_seed)
+                cap_slot = D.AUX_TOK + 4  # the exact cap the plan put in the aux bundle
+                plan.aux[cap_slot] = self._density_cap(int(plan.aux[cap_slot]), plan.n_prefix,
+                                                       len(audio))
+            with span("asr.upload"):
+                aux_dev = self._sync_audio_and_aux(audio, plan.aux)
+                if device_draft is not None:
+                    D.patch_aux_device_draft(
+                        aux_dev.view(1, D.AUX_LEN), device_draft["packed"],
+                        device_draft["offset"], device_draft["max_new"],
+                        device_draft["row_len"], cfg.eot, force=device_draft["force"],
+                        safety=device_draft["safety"])
+            xa = self._encode_from_buf(len(audio))
+            dispatch = BM.beam_decode_dispatch if beam else D.greedy_decode_dispatch
+            handle = dispatch(
+                self.model, xa, opts, plan, aux_dev,
+                extra_suppress=self._extra_suppress, alignment_heads=self.alignment_heads,
+                loop=self.decode_loop,
+            )
         return {"decode_handle": handle, "beam": beam, "xa": xa, "opts": opts,
                 "prompt_ids": prompt_ids, "prefix_ids": prefix_ids, "audio_len": len(audio),
-                "time_offset": time_offset}
+                "time_offset": time_offset, "rid": rid}
 
     def _transcribe_window_finalize(self, st: dict) -> TranscriptionResult:
         cfg = self.cfg
         finalize = BM.beam_decode_finalize if st["beam"] else D.greedy_decode_finalize
-        result = finalize(st["decode_handle"])
-        opts = st["opts"]
-        if self.temperature_fallback and opts.temperature == 0.0:
-            result = self._quality_retry(result, st["xa"], opts, st["prompt_ids"],
-                                         st["prefix_ids"])
-        n_frames = min(st["audio_len"] // (2 * 160), cfg.n_audio_ctx)
-        self.counters["ticks"] += 1
-        self.counters["new_tokens"] += int(result.lengths[0]) - len(st["prefix_ids"] or [])
-        self.counters["encoded_frames"] += n_frames
-        segs = self._parse_segments(result, n_frames, st["time_offset"])
-        ids = result.tokens[0][: result.lengths[0]].tolist()
-        if ids and ids[-1] == cfg.eot:
-            ids = ids[:-1]
-        if self.phase_timer is not None:
-            self.phase_timer.lap("host_parse")
+        with span("asr.finalize", rid=st["rid"]):
+            result = finalize(st["decode_handle"])
+            opts = st["opts"]
+            if self.temperature_fallback and opts.temperature == 0.0:
+                with span("asr.retry"):
+                    result = self._quality_retry(result, st["xa"], opts, st["prompt_ids"],
+                                                 st["prefix_ids"])
+            with span("asr.parse"):
+                n_frames = min(st["audio_len"] // (2 * 160), cfg.n_audio_ctx)
+                self.counters["ticks"] += 1
+                self.counters["new_tokens"] += int(result.lengths[0]) - len(st["prefix_ids"] or [])
+                self.counters["encoded_frames"] += n_frames
+                segs = self._parse_segments(result, n_frames, st["time_offset"])
+                ids = result.tokens[0][: result.lengths[0]].tolist()
+                if ids and ids[-1] == cfg.eot:
+                    ids = ids[:-1]
         return TranscriptionResult(segs, tokens=ids)
 
     def _parse_segments(

@@ -43,6 +43,7 @@ import torch.nn.functional as F
 
 from realtime_whisper_asr_tpu_torch.models.whisper import decode as D
 from realtime_whisper_asr_tpu_torch.models.whisper.model import DecoderCache, Whisper
+from realtime_whisper_asr_tpu_torch.utils.profiling import span
 
 AUX_CAP = D.AUX_TOK + 4  # the exact cap's slot of the aux bundle
 
@@ -290,9 +291,10 @@ def _unpack_capture_rows(out: np.ndarray, p: int, max_new: int, audio_ctx: int,
 def _finalize(handle: D.DecodeHandle, prefixes: list[np.ndarray]) -> list[D.DecodeResult]:
     plan = handle.plan
     out = D._fetch(handle).reshape(handle.b, -1)
-    results = _parse_beam_rows(handle.cfg, out, plan.max_new, prefixes)
-    if handle.capture:
-        _unpack_capture_rows(out, plan.p, plan.max_new, handle.audio_ctx, prefixes, results)
+    with span("asr.parse"):
+        results = _parse_beam_rows(handle.cfg, out, plan.max_new, prefixes)
+        if handle.capture:
+            _unpack_capture_rows(out, plan.p, plan.max_new, handle.audio_ctx, prefixes, results)
     return results
 
 
@@ -310,7 +312,6 @@ def beam_decode_dispatch(
     extra_suppress: tuple[int, ...] = (),
     alignment_heads: Optional[np.ndarray] = None,
     loop: Optional[D.DecodeLoop] = None,
-    phase_timer=None,
 ) -> D.DecodeHandle:
     """The beam search of one planned window (xa (1, audio_ctx, d), ``aux``
     its aux bundle on xa's device) up to the start of its result's copy, as
@@ -322,7 +323,7 @@ def beam_decode_dispatch(
         raise ValueError(f"one window's beam search takes xa of batch 1, got {xa.shape[0]}; "
                          "use beam_decode_batch_dispatch")
     return D._dispatch(model, xa, opts, plan, aux.reshape(1, D.AUX_LEN), extra_suppress,
-                       alignment_heads, loop, phase_timer)
+                       alignment_heads, loop)
 
 
 def beam_decode_finalize(handle: D.DecodeHandle) -> D.DecodeResult:
@@ -347,7 +348,6 @@ def beam_decode_batch_dispatch(
     extra_suppress: tuple[int, ...] = (),
     alignment_heads: Optional[np.ndarray] = None,
     loop: Optional[D.DecodeLoop] = None,
-    phase_timer=None,
 ) -> D.DecodeHandle:
     """B streams' beam searches (xa (B, audio_ctx, d), one planned row
     each) in one loop, up to the start of the result's copy, as
@@ -357,8 +357,7 @@ def beam_decode_batch_dispatch(
         raise ValueError(f"{len(plan.rows)} planned rows for a batch of {xa.shape[0]}")
     if aux is None:
         aux = torch.from_numpy(plan.aux).to(xa.device)
-    return D._dispatch(model, xa, opts, plan, aux, extra_suppress, alignment_heads, loop,
-                       phase_timer)
+    return D._dispatch(model, xa, opts, plan, aux, extra_suppress, alignment_heads, loop)
 
 
 def beam_decode_batch_finalize(handle: D.DecodeHandle) -> list[D.DecodeResult]:

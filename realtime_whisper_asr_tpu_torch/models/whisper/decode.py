@@ -47,7 +47,6 @@ from __future__ import annotations
 import collections
 import dataclasses
 import functools
-import time
 from typing import Callable, Optional
 
 import numpy as np
@@ -56,6 +55,7 @@ import torch
 from realtime_whisper_asr_tpu_torch.models.whisper.config import WhisperConfig
 from realtime_whisper_asr_tpu_torch.models.whisper.model import DecoderCache, Whisper
 from realtime_whisper_asr_tpu_torch.ops import int4_matmul, threefry
+from realtime_whisper_asr_tpu_torch.utils.profiling import span
 
 #: decode steps in one CUDA graph, and between two host checks of the loop's
 #: end. A check idles the card ~0.1 ms, while the steps of the last replay
@@ -616,7 +616,9 @@ class DecodeLoop:
 
     ``stats``: captures, their seconds, the graph pool's bytes after the
     last capture, the state bytes the captures allocated, replays, warm-up
-    steps, uncaptured steps and host checks, since construction."""
+    steps, uncaptured steps and host checks, loop shapes dropped past
+    ``MAX_GRAPHS`` (``evictions``) and captures of a shape captured before
+    and dropped (``recaptures``), since construction."""
 
     def __init__(self, k: int = STEPS_PER_GRAPH):
         if k < 1:
@@ -627,8 +629,10 @@ class DecodeLoop:
         # a block only on the stream that freed it, so a capture on a stream of
         # its own could not reuse the scratch the earlier captures freed
         self._pool = self._stream = self._copy_stream = None
+        self._captured: set[LoopKey] = set()  # every shape captured so far
         self.stats = {"captures": 0, "capture_s": 0.0, "graph_bytes": 0, "state_bytes": 0,
-                      "replays": 0, "warmup_steps": 0, "eager_steps": 0, "checks": 0}
+                      "replays": 0, "warmup_steps": 0, "eager_steps": 0, "checks": 0,
+                      "evictions": 0, "recaptures": 0}
 
     def copy_stream(self, device: torch.device) -> torch.cuda.Stream:
         """The stream the windows' results are copied to the host on."""
@@ -653,34 +657,38 @@ class DecodeLoop:
         if hit is not None:
             self._graphs.move_to_end(key)
             return hit
+        if key in self._captured:
+            self.stats["recaptures"] += 1
+        self._captured.add(key)
         loop = self._graphs[key] = self._capture(model, key, dtype, device, sup_mask, amask)
         while len(self._graphs) > MAX_GRAPHS:
             self._graphs.popitem(last=False)
+            self.stats["evictions"] += 1
         return loop
 
     def _capture(self, model, key, dtype, device, sup_mask, amask) -> _Loop:
         """K steps captured in one CUDA graph on new state buffers. A capture
         that fails raises; nothing falls back to the uncaptured loop."""
-        t0 = time.perf_counter()
-        st, step = _loop_parts(model, key, dtype, device, sup_mask, amask)
-        st.finished.fill_(True)  # the warm-up step is then a no-op on every buffer
-        if self._pool is None:
-            self._pool = torch.cuda.graph_pool_handle()
-            self._stream = torch.cuda.Stream(device)
-        side = self._stream
-        side.wait_stream(torch.cuda.current_stream(device))
-        with torch.cuda.stream(side):  # first-use allocations and library handles
-            step()
-        torch.cuda.current_stream(device).wait_stream(side)
-        self.stats["warmup_steps"] += 1
-        graph = torch.cuda.CUDAGraph()
-        launched = int4_matmul.int4_launches
-        with torch.cuda.graph(graph, pool=self._pool, stream=side):
-            for _ in range(self.k):
+        with span("decode.capture") as timed:
+            st, step = _loop_parts(model, key, dtype, device, sup_mask, amask)
+            st.finished.fill_(True)  # the warm-up step is then a no-op on every buffer
+            if self._pool is None:
+                self._pool = torch.cuda.graph_pool_handle()
+                self._stream = torch.cuda.Stream(device)
+            side = self._stream
+            side.wait_stream(torch.cuda.current_stream(device))
+            with torch.cuda.stream(side):  # first-use allocations and library handles
                 step()
-        # a capture records K2's launches; each replay makes them
-        per_replay = int4_matmul.int4_launches - launched
-        int4_matmul.int4_launches = launched
+            torch.cuda.current_stream(device).wait_stream(side)
+            self.stats["warmup_steps"] += 1
+            graph = torch.cuda.CUDAGraph()
+            launched = int4_matmul.int4_launches
+            with torch.cuda.graph(graph, pool=self._pool, stream=side):
+                for _ in range(self.k):
+                    step()
+            # a capture records K2's launches; each replay makes them
+            per_replay = int4_matmul.int4_launches - launched
+            int4_matmul.int4_launches = launched
 
         def run_k():
             graph.replay()
@@ -688,7 +696,7 @@ class DecodeLoop:
             self.stats["replays"] += 1
 
         self.stats["captures"] += 1
-        self.stats["capture_s"] += time.perf_counter() - t0
+        self.stats["capture_s"] += timed.t1 - timed.t0
         self.stats["graph_bytes"] = sum(  # the shared pool's segments, now
             seg["total_size"] for seg in torch.cuda.memory_snapshot()
             if tuple(seg["segment_pool_id"]) == tuple(self._pool))
@@ -700,12 +708,15 @@ class DecodeLoop:
         a time, with one host check of the loop's end before each K: the only
         device reads of the loop."""
         st = loop.state
-        while steps_max > 0:
-            self.stats["checks"] += 1
-            if bool(st.ended()):  # one sync per K steps
-                return
-            loop.run_k()
-            steps_max -= self.k
+        with span("decode.loop"):
+            while steps_max > 0:
+                self.stats["checks"] += 1
+                with span("decode.check"):
+                    ended = bool(st.ended())  # one sync per K steps
+                if ended:
+                    return
+                loop.run_k()
+                steps_max -= self.k
 
 
 @torch.inference_mode()
@@ -739,15 +750,19 @@ def _decode_window(model: Whisper, opts: DecodeOptions, xa: torch.Tensor, aux: t
     if beam_size > 1:
         from realtime_whisper_asr_tpu_torch.models.whisper import beam
 
-        pre_xattn, no_speech_prob = beam._prefill(model, opts, xa, aux, sup_mask, amask,
-                                                  run.state, p)
+        with span("decode.prefill"):
+            pre_xattn, no_speech_prob = beam._prefill(model, opts, xa, aux, sup_mask, amask,
+                                                      run.state, p)
         loop.run(run, steps_max)
-        return beam._pack(run.state, pre_xattn, no_speech_prob, p, cfg.eot,
-                          opts.length_penalty)
-    pre_xattn, no_speech_prob = _prefill(model, opts, xa, aux, sup_mask, amask, run.state, p,
-                                         draft_max)
+        with span("decode.pack"):
+            return beam._pack(run.state, pre_xattn, no_speech_prob, p, cfg.eot,
+                              opts.length_penalty)
+    with span("decode.prefill"):
+        pre_xattn, no_speech_prob = _prefill(model, opts, xa, aux, sup_mask, amask, run.state,
+                                             p, draft_max)
     loop.run(run, steps_max)
-    return _pack(run.state, pre_xattn, no_speech_prob, p)
+    with span("decode.pack"):
+        return _pack(run.state, pre_xattn, no_speech_prob, p)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -859,33 +874,30 @@ def plan_batch_aux(cfg: WhisperConfig, opts: DecodeOptions, requests: list[dict]
 class DecodeHandle:
     """A dispatched window's decode: its packed result on the card (kept
     alive: the next async tick reads it as its draft), the pinned host
-    buffer its copy is filling, the events after the loop (``ready``, on the
-    compute stream) and after the copy (``done``, on the copy stream; both
-    None on the CPU, where the result is already on the host), and what the
-    unpack needs."""
+    buffer its copy is filling, the event after the copy (``done``, on the
+    copy stream; None on the CPU, where the result is already on the host),
+    and what the unpack needs."""
 
     packed: torch.Tensor
     host: torch.Tensor
-    ready: Optional[torch.cuda.Event]
     done: Optional[torch.cuda.Event]
     cfg: WhisperConfig
     plan: "WindowPlan | BatchPlan"  # a window's, or a batched decode's
     b: int
     audio_ctx: int
     capture: bool
-    phase_timer: object = None
 
 
 def _copy_to_host(packed: torch.Tensor, loop: DecodeLoop):
     """Start the device→host copy of ``packed`` without waiting for it:
     into pinned memory, on ``loop``'s copy stream, after the compute
-    stream's work so far. -> (host buffer, event after the loop, event after
-    the copy). ``record_stream`` keeps the allocator from reusing ``packed``
-    under the pending copy; the pinned buffer's own allocator records the
-    copy's event and reuses the buffer only after it, however early the
-    handle is dropped. A CPU tensor is the host buffer itself."""
+    stream's work so far. -> (host buffer, event after the copy).
+    ``record_stream`` keeps the allocator from reusing ``packed`` under the
+    pending copy; the pinned buffer's own allocator records the copy's event
+    and reuses the buffer only after it, however early the handle is
+    dropped. A CPU tensor is the host buffer itself."""
     if packed.device.type != "cuda":
-        return packed, None, None
+        return packed, None
     host = torch.empty(packed.shape, dtype=packed.dtype, pin_memory=True)
     stream = loop.copy_stream(packed.device)
     ready = torch.cuda.Event()
@@ -896,7 +908,7 @@ def _copy_to_host(packed: torch.Tensor, loop: DecodeLoop):
     packed.record_stream(stream)
     done = torch.cuda.Event()
     done.record(stream)
-    return host, ready, done
+    return host, done
 
 
 def greedy_decode_dispatch(
@@ -908,7 +920,6 @@ def greedy_decode_dispatch(
     extra_suppress: tuple[int, ...] = (),
     alignment_heads: Optional[np.ndarray] = None,
     loop: Optional[DecodeLoop] = None,
-    phase_timer=None,
 ) -> DecodeHandle:
     """The decode of one planned window up to its result's copy: the
     prefill, the loop (its host checks are the only waits) and the pack,
@@ -920,48 +931,38 @@ def greedy_decode_dispatch(
     b = xa.shape[0]
     return _dispatch(model, xa, dataclasses.replace(opts, beam_size=1), plan,
                      aux.reshape(-1, AUX_LEN).expand(b, AUX_LEN), extra_suppress,
-                     alignment_heads, loop, phase_timer)
+                     alignment_heads, loop)
 
 
-def _dispatch(model, xa, opts, plan, aux, extra_suppress, alignment_heads, loop,
-              phase_timer) -> DecodeHandle:
+def _dispatch(model, xa, opts, plan, aux, extra_suppress, alignment_heads, loop) -> DecodeHandle:
     loop = loop or DecodeLoop()
     packed = _decode_window(model, opts, xa, aux, plan, tuple(extra_suppress), alignment_heads,
                             loop, captured=xa.device.type == "cuda")
-    host, ready, done = _copy_to_host(packed, loop)
-    return DecodeHandle(packed, host, ready, done, model.cfg, plan, xa.shape[0], xa.shape[1],
-                        opts.word_timestamps, phase_timer)
+    with span("decode.pack"):
+        host, done = _copy_to_host(packed, loop)
+    return DecodeHandle(packed, host, done, model.cfg, plan, xa.shape[0], xa.shape[1],
+                        opts.word_timestamps)
 
 
 def _fetch(handle: DecodeHandle) -> np.ndarray:
-    """Wait for a dispatched decode's result copy (its one wait; nothing
-    else touches the card) -> the packed result on the host. With a
-    ``phase_timer``, laps ``decode`` once the card has finished the loop and
-    ``download`` after the copy."""
-    pt = handle.phase_timer
-    if pt is not None and handle.ready is not None:
-        handle.ready.synchronize()
-    if pt is not None:
-        pt.lap("decode")
-    if handle.done is not None:
-        handle.done.synchronize()
-    flat = handle.host.numpy()
-    if pt is not None:
-        pt.lap("download")
-    return flat
+    """Wait for a dispatched decode's result copy (its one wait, the
+    ``asr.fetch_wait`` span; nothing else touches the card) -> the packed
+    result on the host."""
+    with span("asr.fetch_wait"):
+        if handle.done is not None:
+            handle.done.synchronize()
+    return handle.host.numpy()
 
 
 def greedy_decode_finalize(handle: DecodeHandle) -> DecodeResult:
     """Wait for the dispatched window's result copy and unpack it
     (``_fetch``). Returns tokens = prefix + sampled (xattn rows aligned), so
-    callers parse one transcript regardless of how much was forced.
-
-    ``phase_timer`` (``utils.profiling.PhaseTimer``, from the dispatch), when
-    given, laps ``decode`` once the card has finished the loop and
-    ``download`` after the copy."""
+    callers parse one transcript regardless of how much was forced."""
     plan, b = handle.plan, handle.b
-    rows = _unpack_packed_rows(_fetch(handle), handle.cfg, b, plan.p, plan.max_new,
-                               handle.capture, handle.audio_ctx, [plan.prefix] * b)
+    flat = _fetch(handle)
+    with span("asr.parse"):
+        rows = _unpack_packed_rows(flat, handle.cfg, b, plan.p, plan.max_new,
+                                   handle.capture, handle.audio_ctx, [plan.prefix] * b)
     lengths = np.array([r[1] for r in rows], np.int64)
     sum_lp = np.array([r[2] for r in rows], np.float64)
     return DecodeResult(
@@ -983,12 +984,11 @@ def greedy_decode(
     extra_suppress: tuple[int, ...] = (),
     alignment_heads: Optional[np.ndarray] = None,
     loop: Optional[DecodeLoop] = None,
-    phase_timer=None,
 ) -> DecodeResult:
     """Run the decode of one planned window and unpack its result:
     ``greedy_decode_finalize(greedy_decode_dispatch(...))``."""
     return greedy_decode_finalize(greedy_decode_dispatch(
-        model, xa, opts, plan, aux, extra_suppress, alignment_heads, loop, phase_timer))
+        model, xa, opts, plan, aux, extra_suppress, alignment_heads, loop))
 
 
 def greedy_decode_batch_dispatch(
@@ -1000,7 +1000,6 @@ def greedy_decode_batch_dispatch(
     extra_suppress: tuple[int, ...] = (),
     alignment_heads: Optional[np.ndarray] = None,
     loop: Optional[DecodeLoop] = None,
-    phase_timer=None,
 ) -> DecodeHandle:
     """The dispatch half of a batched decode: B streams' windows, one row
     each of ``xa`` (B, audio_ctx, d), decoded in one loop (one graph of
@@ -1012,7 +1011,7 @@ def greedy_decode_batch_dispatch(
     if aux is None:
         aux = torch.from_numpy(plan.aux).to(xa.device)
     return _dispatch(model, xa, dataclasses.replace(opts, beam_size=1), plan, aux,
-                     extra_suppress, alignment_heads, loop, phase_timer)
+                     extra_suppress, alignment_heads, loop)
 
 
 def greedy_decode_batch_finalize(handle: DecodeHandle) -> list[DecodeResult]:
@@ -1020,8 +1019,10 @@ def greedy_decode_batch_finalize(handle: DecodeHandle) -> list[DecodeResult]:
     (``_fetch``) and unpack one ``DecodeResult`` (batch 1) per row, each
     with the row's own prefix."""
     plan = handle.plan
-    rows = _unpack_packed_rows(_fetch(handle), handle.cfg, handle.b, plan.p, plan.max_new,
-                               handle.capture, handle.audio_ctx, [r.prefix for r in plan.rows])
+    flat = _fetch(handle)
+    with span("asr.parse"):
+        rows = _unpack_packed_rows(flat, handle.cfg, handle.b, plan.p, plan.max_new,
+                                   handle.capture, handle.audio_ctx, [r.prefix for r in plan.rows])
     results = []
     for (full, length, lp, nsp, xattn), row in zip(rows, plan.rows):
         results.append(DecodeResult(

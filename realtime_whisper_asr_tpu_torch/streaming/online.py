@@ -34,6 +34,7 @@ from typing import Callable, Optional
 import numpy as np
 
 from realtime_whisper_asr_tpu_torch.streaming.hypothesis import HypothesisBuffer, Word
+from realtime_whisper_asr_tpu_torch.utils.profiling import span
 
 logger = logging.getLogger(__name__)
 
@@ -200,6 +201,10 @@ class OnlineASRProcessor:
 
     def process_iter(self) -> tuple[Optional[float], Optional[float], str]:
         """Re-transcribe the buffer, commit agreed words, trim, return commit."""
+        with span("stream.tick"):
+            return self._process_iter()
+
+    def _process_iter(self) -> tuple[Optional[float], Optional[float], str]:
         if self.pipeline:
             return self._process_iter_pipelined()
         t_start = self.clock()
@@ -328,19 +333,20 @@ class OnlineASRProcessor:
     def prepare_request(self) -> dict:
         """This tick's transcribe inputs: the buffer, the prompt, and the
         incremental-prefix and draft tokens."""
-        prompt, _ = self.prompt()
-        req: dict = {"audio": self.audio_buffer, "init_prompt": prompt}
-        if self.incremental_prefix:
-            prefix = self._stable_prefix()
-            if prefix:
-                req["prefix_ids"] = prefix
-            # the last hypothesis's continuation beyond the forced prefix is
-            # the self-speculative draft: the backend verifies it in the
-            # prefill pass and only decodes genuinely new tokens step-by-step
-            # (losslessly — rejected drafts cost nothing but the verify)
-            draft = self._draft_tail(len(prefix) if prefix else 0)
-            if draft:
-                req["draft_ids"] = draft
+        with span("stream.prepare"):
+            prompt, _ = self.prompt()
+            req: dict = {"audio": self.audio_buffer, "init_prompt": prompt}
+            if self.incremental_prefix:
+                prefix = self._stable_prefix()
+                if prefix:
+                    req["prefix_ids"] = prefix
+                # the last hypothesis's continuation beyond the forced prefix is
+                # the self-speculative draft: the backend verifies it in the
+                # prefill pass and only decodes genuinely new tokens step-by-step
+                # (losslessly — rejected drafts cost nothing but the verify)
+                draft = self._draft_tail(len(prefix) if prefix else 0)
+                if draft:
+                    req["draft_ids"] = draft
         return req
 
     def apply_result(self, res, proc_delay_s: float = 0.0,
@@ -353,6 +359,10 @@ class OnlineASRProcessor:
         its apply — the stale result's window-relative times must shift by the
         offset it was decoded against, and its token history (old-window
         timestamp tokens) is dropped so the next prefix rebuilds cleanly."""
+        with span("stream.apply"):
+            return self._apply_result(res, proc_delay_s, time_offset)
+
+    def _apply_result(self, res, proc_delay_s: float, time_offset: Optional[float]):
         #: dispatch→apply span of the tick that produced the LAST applied
         #: result — in pipelined mode this is the true chunk→text latency
         #: (the per-call process_iter time only covers the drain+dispatch)

@@ -22,6 +22,8 @@ from typing import Callable, Optional
 
 import numpy as np
 
+from realtime_whisper_asr_tpu_torch.utils.profiling import span
+
 logger = logging.getLogger(__name__)
 
 SAMPLING_RATE = 16000
@@ -143,6 +145,12 @@ class VACOnlineASRProcessor:
     # ------------------------------------------------------------------- audio
 
     def insert_audio_chunk(self, audio: np.ndarray) -> None:
+        """Route a chunk by the VAD's events (the ``stream.insert`` span,
+        the VAD included)."""
+        with span("stream.insert"):
+            self._insert_audio_chunk(audio)
+
+    def _insert_audio_chunk(self, audio: np.ndarray) -> None:
         audio = np.asarray(audio, np.float32)
         events = self.vac(audio)
         self.audio_buffer = np.append(self.audio_buffer, audio)

@@ -271,16 +271,16 @@ def _host_reads(func) -> list[str]:
 
 def test_the_split_reads_the_device_only_in_the_finalize_wait():
     """The device draft and the dispatch's copy read nothing back; the
-    finalize's one wait is the copy's event (the loop's end is waited for
-    only under a phase timer), then the pinned host buffer is read, in
-    ``_fetch``, which the window's and the batched finalize share."""
+    finalize's one wait is the copy's event, then the pinned host buffer is
+    read, in ``_fetch``, which the window's and the batched finalize
+    share."""
     assert _host_reads(D.patch_aux_device_draft) == []
     assert _host_reads(D._copy_to_host) == []
     for dispatch in (D.greedy_decode_dispatch, D.greedy_decode_batch_dispatch, D._dispatch):
         assert _host_reads(dispatch) == []
     for finalize in (D.greedy_decode_finalize, D.greedy_decode_batch_finalize):
         assert _host_reads(finalize) == []
-    assert sorted(_host_reads(D._fetch)) == ["numpy", "synchronize", "synchronize"]
+    assert sorted(_host_reads(D._fetch)) == ["numpy", "synchronize"]
 
 
 # ------------------------------------------------------------- the stream loop
