@@ -49,7 +49,7 @@ import json
 import logging
 import os
 import zlib
-from typing import Optional, Sequence
+from typing import Callable, Optional, Sequence
 
 import numpy as np
 import torch
@@ -73,6 +73,8 @@ from realtime_whisper_asr_tpu_torch.models.whisper.config import (
 from realtime_whisper_asr_tpu_torch.models.whisper.load import load_checkpoint_dir
 from realtime_whisper_asr_tpu_torch.models.whisper.model import Whisper, encoder_flops, init_params
 from realtime_whisper_asr_tpu_torch.models.whisper.tokenizer import Tokenizer, get_tokenizer
+from realtime_whisper_asr_tpu_torch.ops import int4_matmul
+from realtime_whisper_asr_tpu_torch.ops import logmel as LM
 from realtime_whisper_asr_tpu_torch.ops.logmel import log_mel_spectrogram
 from realtime_whisper_asr_tpu_torch.utils.profiling import new_rid, span
 
@@ -137,6 +139,84 @@ class TranscriptionResult(list):
     def __init__(self, segments, tokens=None):
         super().__init__(segments)
         self.tokens = tokens or []
+
+
+@dataclasses.dataclass
+class _EncodeGraph:
+    inp: torch.Tensor  # (rows, bucket samples) f32: the windows the graph reads
+    replay: Callable[[], torch.Tensor]  # runs the graph -> its output
+    model: Whisper  # the weights the graph reads, kept alive with it
+
+
+class EncodeGraphs:
+    """The encoder's CUDA graphs: K1 per row, the stack and cast, and
+    ``model.encode``, captured once per (model, rows, window bucket) and
+    replayed, so an encode costs its windows' copy into the graph's input
+    and one launch. The keys are bounded (3 buckets × the rows a batch
+    holds), so nothing is evicted; all graphs share one pool and one
+    capture stream, as ``decode.DecodeLoop``'s do.
+
+    A key's first encode runs eagerly on the capture stream (first-use
+    allocations: K1's tables, ``device_constant``'s tensors, the libraries'
+    handles), then is captured; that eager run's output is the result, so
+    every encode launches K1 once per row. A replay runs the same kernels
+    in the same order, so its output is bit-equal to the eager encode's.
+    The output is the graph's own tensor, overwritten by the next replay of
+    any key (the pool is shared): a reader that outlives its dispatch keeps
+    a copy."""
+
+    def __init__(self):
+        self._graphs: dict[tuple, _EncodeGraph] = {}
+        self._pool = self._stream = None
+
+    @torch.inference_mode()
+    def run(self, model: Whisper, windows: list[torch.Tensor],
+            encode: Callable[[torch.Tensor], torch.Tensor], counters: dict) -> torch.Tensor:
+        """``encode`` ((rows, samples) f32 -> encoder output) of the stacked
+        ``windows``, replayed from its graph; captured at a key's first use.
+        Counts ``encode_captures`` and ``encode_replays`` in ``counters``."""
+        key = (id(model), len(windows), int(windows[0].shape[0]))
+        hit = self._graphs.get(key)
+        if hit is None:
+            with span("encode.capture"):
+                inp = torch.stack(windows)
+                out, replay = self._capture(inp, encode)
+            self._graphs[key] = _EncodeGraph(inp, replay, model)
+            counters["encode_captures"] += 1
+            return out
+        torch.stack(windows, out=hit.inp)
+        counters["encode_replays"] += 1
+        return hit.replay()
+
+    def _capture(self, inp: torch.Tensor, encode) -> tuple[torch.Tensor, Callable]:
+        """(``encode(inp)`` run eagerly, a replay of it captured in a CUDA
+        graph). A capture that fails raises; nothing falls back to the eager
+        encode."""
+        device = inp.device
+        if self._pool is None:
+            self._pool = torch.cuda.graph_pool_handle()
+            self._stream = torch.cuda.Stream(device)
+        side, current = self._stream, torch.cuda.current_stream(device)
+        side.wait_stream(current)
+        with torch.cuda.stream(side):
+            first = encode(inp)
+        current.wait_stream(side)
+        first.record_stream(current)
+        graph = torch.cuda.CUDAGraph()
+        k1, k2 = LM.logmel_launches, int4_matmul.int4_launches
+        with torch.cuda.graph(graph, pool=self._pool, stream=side):
+            out = encode(inp)
+        # a capture records K1's (and K2's) launches; each replay makes them
+        per_k1, per_k2 = LM.logmel_launches - k1, int4_matmul.int4_launches - k2
+        LM.logmel_launches, int4_matmul.int4_launches = k1, k2
+
+        def replay() -> torch.Tensor:
+            graph.replay()
+            LM.logmel_launches += per_k1
+            int4_matmul.int4_launches += per_k2
+            return out
+
+        return first, replay
 
 
 def load_model_dir(path: str, dtype) -> tuple[WhisperConfig, dict]:
@@ -272,13 +352,19 @@ class TorchWhisperASR:
         #: the decode loop of every window: on the card its CUDA graphs, one
         #: per loop shape, captured at a shape's first window
         self.decode_loop = D.DecodeLoop()
+        #: the encode of every window on the card: its CUDA graphs, one per
+        #: (rows, window bucket), captured at a key's first encode
+        self.encode_graphs = EncodeGraphs()
         #: one tick (window) = one h2d transfer, one log-mel launch, one
         #: encode; a prefetch (``prefetch_audio``) is one h2d transfer more; a
         #: batched tick of B streams is one transfer, B log-mel launches and
         #: one encode of B rows. ``encode_flops``: the encoder's matmul FLOPs
-        #: over the rows encoded (``model.encoder_flops``)
+        #: over the rows encoded (``model.encoder_flops``);
+        #: ``encode_captures`` / ``encode_replays``: the encodes that captured
+        #: or replayed a graph of ``encode_graphs``
         self.counters = {"new_tokens": 0, "ticks": 0, "encoded_frames": 0,
-                         "h2d_transfers": 0, "h2d_bytes": 0, "encode_flops": 0}
+                         "h2d_transfers": 0, "h2d_bytes": 0, "encode_flops": 0,
+                         "encode_captures": 0, "encode_replays": 0}
         #: per-stream device audio rings: key -> (ring (_CAP,) f32 on the
         #: device, the f32 audio it holds as the host last sent it). The ring
         #: is zero past that audio, so its first window bucket is the padded
@@ -487,19 +573,37 @@ class TorchWhisperASR:
         """B streams' windows in one encode -> (B, frames/2, d): every row
         at the group's largest window bucket (each ring is zero past its
         audio), separated as one batch when the frontend is set, K1 once
-        per row, one ``model.encode`` of the stack."""
+        per row, one ``model.encode`` of the stack. On the card (see
+        ``_encode_captured``) the encode replays ``encode_graphs``' graph of
+        its (rows, bucket), whose output the next encode overwrites."""
         with span("encode"):
             nb = max(self._window_bucket(n) for n in n_samples_list)
             self.counters["encode_flops"] += len(keys) * encoder_flops(self.cfg, nb // (2 * 160))
             windows = [self._buffers[k][0][:nb] for k in keys]
+            if self._encode_captured():
+                return self.encode_graphs.run(
+                    self.model, windows, lambda x: self._encode_windows(x.unbind(0)),
+                    self.counters)
             if self._sep_frontend is not None:
                 sep, dil = self._sep_frontend
                 with span("encode.separate"):
                     windows = SEP.separate_vocals(sep, torch.stack(windows), dil=dil).unbind(0)
-            with span("encode.logmel"):
-                mels = [log_mel_spectrogram(w, n_mels=self.cfg.n_mels) for w in windows]
-            with span("encode.model"):
-                return self.model.encode(torch.stack(mels).to(self.model.dtype))
+            return self._encode_windows(windows)
+
+    def _encode_windows(self, windows) -> torch.Tensor:
+        """K1 of each (samples,) window, one ``model.encode`` of the stack."""
+        with span("encode.logmel"):
+            mels = [log_mel_spectrogram(w, n_mels=self.cfg.n_mels) for w in windows]
+        with span("encode.model"):
+            return self.model.encode(torch.stack(mels).to(self.model.dtype))
+
+    def _encode_captured(self) -> bool:
+        """Whether ``_encode_many`` replays a CUDA graph: on the card, unless
+        the separation frontend is set (its net runs eagerly before K1) or
+        the model is a subclass of ``Whisper`` (the tensor-parallel model,
+        whose collectives run inside ``encode``)."""
+        return (self.device.type == "cuda" and self._sep_frontend is None
+                and type(self.model) is Whisper)
 
     def set_separation_frontend(self, sep_params) -> None:
         """Fuse a trained spectral-mask separator into the encode: every
@@ -520,8 +624,7 @@ class TorchWhisperASR:
         """(n,) f32 window on the device -> encoder output (1, n/320, d),
         never separated (``detect_language``'s encode, as in the JAX
         package)."""
-        mel = log_mel_spectrogram(audio, n_mels=self.cfg.n_mels)
-        return self.model.encode(mel.to(self.model.dtype)[None])
+        return self._encode_windows([audio])
 
     def _density_cap(self, max_new_cap: int, n_prefix: int, window_samples: int) -> int:
         """The plan's exact cap with the per-second transcript cap folded in
@@ -764,6 +867,8 @@ class TorchWhisperASR:
                 extra_suppress=self._extra_suppress, alignment_heads=self.alignment_heads,
                 loop=self.decode_loop,
             )
+        if self._encode_captured():  # the quality retry reads it after the next encode
+            xa = xa.clone()
         return {"decode_handle": handle, "beam": beam, "xa": xa, "opts": opts,
                 "prompt_ids": prompt_ids, "prefix_ids": prefix_ids, "audio_len": len(audio),
                 "time_offset": time_offset, "rid": rid}
