@@ -1,29 +1,32 @@
 """One run of one cell: set-up, warm-up, window and drain (the traffic
 kind's), then the metrics, the look for JAX, the release of the program's
-state, and the comparison with the reference."""
+state, the comparison with the reference, and the look for JAX again (the
+family's check and its reference must load none of it either).
+
+Everything that depends on the model comes from the model family that the
+cell's configuration names (``families/<family>.py``, ``ctx.family``): the
+traffic kind builds the system with it, the readers take each dispatch's
+work count from it, and its check makes the reference's state from the seed
+and judges the served tokens. The harness itself is the same for every
+family."""
 
 from __future__ import annotations
 
 import gc
 import os
 import statistics
-import sys
 import time
 
-from portbench.core import readers, spec, system, verify, window
-from portbench.core import weights as WT
+from portbench.core import readers, spec, window
 from portbench.core.record import SR, Recorder
-from portbench.core.work import dispatch_work
-
-#: top-level module names no run may load: JAX and the JAX package
-FORBIDDEN = ("jax", "jaxlib", "flax", "realtime_whisper_asr_tpu")
+from portbench.core.spec import forbidden_modules
 
 
-def forbidden_modules(modules=None) -> list[str]:
-    """The loaded modules whose top-level name (before the first dot),
-    compared whole, is one of ``FORBIDDEN``."""
-    names = sys.modules if modules is None else modules
-    return sorted({m for m in names if m.split(".", 1)[0] in FORBIDDEN})
+def refuse_jax(when: str) -> None:
+    """Raise if a module of JAX or the JAX package is loaded."""
+    found = forbidden_modules()
+    if found:
+        raise RuntimeError(f"modules of JAX or the JAX package are loaded {when}: {found}")
 
 
 def process_start_epoch(fallback: float) -> float:
@@ -39,15 +42,16 @@ def process_start_epoch(fallback: float) -> float:
         return fallback
 
 
-def _works(cfg: dict, rec, dids) -> dict:
-    """Work of the dispatches whose rows all came back with their audio."""
+def _works(family, cfg: dict, rec, dids) -> dict:
+    """Work of the dispatches whose rows all came back with their audio, as
+    the model family counts it."""
     out = {}
     for did in dids:
         d = rec.dispatches[did]
         rows = [rec.reqs[i] for i in d.rids]
         if rows and all(r.tokens is not None and r.audio is not None and not r.multi_window
                         for r in rows) and len(rows) == d.rows_real:
-            out[did] = dispatch_work(cfg, rec, d)
+            out[did] = family.work(cfg, rec, d)
     return out
 
 
@@ -61,13 +65,14 @@ def run_cell(root: str, bench_path: str, workload: str, seed: int, seconds: floa
     import torch
 
     cell = spec.load_cell(bench_path, workload, root)
+    family = spec.model_family(root, cell.config)
     rec = Recorder(trace=trace)
     tracer = None
     if trace:
         from portbench.core.trace import Tracer
 
         tracer = Tracer()
-    ctx = window.Ctx(cell, seed, float(seconds), device, rec, tracer, log=log)
+    ctx = window.Ctx(cell, seed, float(seconds), device, rec, tracer, log=log, family=family)
     spec.traffic_kind(root, cell.traffic["kind"]).run(ctx)
     log(f"set-up: the system built {ctx.extra.get('built_s')} s after the start of the run's "
         f"set-up, the window opened {ctx.t_w0 - ctx.extra.get('t_build0', ctx.t_w0)} s after it")
@@ -105,7 +110,8 @@ def run_cell(root: str, bench_path: str, workload: str, seed: int, seconds: floa
             f"dispatches; top device ops: {data.device_ops}; idle by host activity: "
             f"{data.idle_gaps}")
     dids = {d.did for d in timed} | (data.complete if data is not None else set())
-    run = readers.RunData(ctx, cell.config, rec, data, timed, _works(cell.config, rec, dids))
+    run = readers.RunData(ctx, cell.config, rec, data, timed,
+                          _works(family, cell.config, rec, dids))
     values = {
         "result_p95_ms": window.percentile(lat, 95),
         "result_p50_ms": window.percentile(lat, 50),
@@ -122,9 +128,7 @@ def run_cell(root: str, bench_path: str, workload: str, seed: int, seconds: floa
             v = spec.metric_reader(root, m["name"])(run)
             if v is not None:
                 metrics[m["name"]] = {"value": float(v), "unit": m["unit"]}
-    found = forbidden_modules()
-    if found:
-        raise RuntimeError(f"modules of JAX or the JAX package are loaded: {found}")
+    refuse_jax("once the window has closed")
     dev = {"platform": "gpu" if cuda else device.type,
            "kind": torch.cuda.get_device_name(device) if cuda else device.type,
            "count": 1, "memory_peak_bytes": peak}
@@ -135,14 +139,13 @@ def run_cell(root: str, bench_path: str, workload: str, seed: int, seconds: floa
     if cuda:
         torch.cuda.empty_cache()
     cfg = cell.config
-    state = WT.make_state(cfg, seed, device, system.DTYPES[cfg["dtype"]])
     t0 = time.perf_counter()
-    got = verify.check(rec, cfg, seed, state, device, control=control)
+    got = family.check(rec, cfg, seed, device, control)
+    refuse_jax("after the reference check")
     log(f"reference check of {got['requests']} requests, {got['positions']} positions in "
         f"{time.perf_counter() - t0} s")
     for note in got["fault_notes"]:
         log(f"structural fault: {note}")
-    del state
     limits = cfg["limits"]
     gap = "control_widest_gap" if control else "widest_gap"
     if control:

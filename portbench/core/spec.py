@@ -5,10 +5,15 @@ per-layer metric sits in files of its own, found by the name that
 ``BENCHMARK.json`` gives:
 
 - ``configs/<config>.json`` (the entry's ``file``): the model's sizes, tier,
-  caps, peaks and limits;
+  caps, peaks and limits, and its ``family``;
+- ``families/<family>.py``: the model family's build, recorder wraps, loop
+  counters, work count and reference check;
 - ``traffic/<traffic>.json``: a mix's parameters, with the generator
   ``kind`` that reads them, ``traffic/kinds/<kind>.py``;
 - ``metrics/<metric>.py``: a per-layer metric's reader, ``read(run)``.
+
+It also names the packages no run may load (``FORBIDDEN``), which the
+harness looks for once the window has closed and again after the check.
 """
 
 from __future__ import annotations
@@ -17,9 +22,20 @@ import dataclasses
 import importlib.util
 import json
 import os
+import sys
 from typing import Callable, Optional
 
 HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+#: top-level module names no run may load: JAX and the JAX package
+FORBIDDEN = ("jax", "jaxlib", "flax", "realtime_whisper_asr_tpu")
+
+
+def forbidden_modules(modules=None) -> list[str]:
+    """The loaded modules whose top-level name (before the first dot),
+    compared whole, is one of ``FORBIDDEN``."""
+    names = sys.modules if modules is None else modules
+    return sorted({m for m in names if m.split(".", 1)[0] in FORBIDDEN})
 
 
 @dataclasses.dataclass
@@ -79,6 +95,21 @@ def _load_module(path: str, tag: str):
 def traffic_kind(root: str, kind: str):
     """The generator module of a traffic kind: ``run(ctx)``."""
     return _load_module(os.path.join(traffic_dir(root), "kinds", f"{kind}.py"), f"kind_{kind}")
+
+
+def model_family(root: str, config: dict):
+    """The module of the model family that configuration ``config`` names
+    (its ``"family"``): ``build(cfg, seed, device)``, ``attach(rec, asr)``,
+    ``loop_stats(asr)``, ``work(cfg, rec, dispatch)`` and ``check(rec, cfg,
+    seed, device, control)``."""
+    if "family" not in config:
+        raise KeyError(f"configuration {config.get('name')!r} names no \"family\"")
+    name = config["family"]
+    path = os.path.join(root, "portbench", "families", f"{name}.py")
+    if not os.path.isfile(path):
+        raise FileNotFoundError(f"configuration {config.get('name')!r} names the model "
+                                f"family {name!r}, but there is no {path}")
+    return _load_module(path, f"family_{name}")
 
 
 def metric_reader(root: str, name: str) -> Callable:

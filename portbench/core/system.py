@@ -1,9 +1,15 @@
-"""The system under test: the only module of the benchmark that imports the
-program (``realtime_whisper_asr_tpu_torch``), and only its serving and
-streaming entry points and its model's state-dict layout.
+"""The system under test: the program's (``realtime_whisper_asr_tpu_torch``)
+entry points that the benchmark builds.
 
-The benchmark makes the weights (``core/weights.py``) and hands them to the
-ASR backend, which quantizes them to the configuration's tier.
+- ``build_asr`` and ``loop_stats``: the program's Whisper ASR backend, with
+  the weights that ``core/weights.py`` makes from the seed (the backend
+  quantizes them to the configuration's tier), and its decode loop's
+  counters. The Whisper family (``families/whisper.py``) calls them; another
+  family brings its own build.
+- ``build_one_stream``: the streaming processors, which take any backend with
+  the port's ASR interface, whatever its family.
+
+Besides this module, ``core/spans.py`` reads the program's ring of spans.
 """
 
 from __future__ import annotations

@@ -1,4 +1,5 @@
-"""The comparison that decides ``correct``: served tokens against the plain
+"""The Whisper family's comparison that decides ``correct``
+(``families/whisper.py``'s ``check``): served tokens against the plain
 reference.
 
 Once the window has closed, a sample of the requests the program finished,

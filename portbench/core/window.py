@@ -33,12 +33,13 @@ class Ctx:
     rec: Recorder
     tracer: object = None  # core.trace.Tracer when tracing
     log: object = print
+    family: object = None  # the configuration's model family (spec.model_family)
     # filled by the traffic kind
     asr: object = None
     t_w0: float = 0.0  # the window's first packet (host clock)
     t_w1: float = 0.0  # the window's end
     t_end: float = 0.0  # the drain's end
-    loop0: dict = dataclasses.field(default_factory=dict)  # decode-loop counters at t_w0
+    loop0: dict = dataclasses.field(default_factory=dict)  # the family's loop_stats at t_w0
     loop1: dict = dataclasses.field(default_factory=dict)  # ... at t_w1
     extra: dict = dataclasses.field(default_factory=dict)
 

@@ -6,8 +6,12 @@ from __future__ import annotations
 import numpy as np
 import pytest
 
-from portbench.core import harness, window, work
+from conftest import REPO
+from portbench.core import harness, spec, window, work
 from portbench.core.record import Packet, Recorder, Req
+
+#: the Whisper family's work count
+whisper = spec.model_family(REPO, {"family": "whisper"})
 
 
 @pytest.mark.parametrize("q", [50, 95, 99, 0, 100])
@@ -62,7 +66,7 @@ def test_encoder_flops_equals_the_programs(frames):
     from realtime_whisper_asr_tpu_torch.models.whisper.config import get_config
     from realtime_whisper_asr_tpu_torch.models.whisper.model import encoder_flops
 
-    assert work.encoder_flops(TINY, frames) == encoder_flops(get_config("test-tiny"), frames)
+    assert whisper.encoder_flops(TINY, frames) == encoder_flops(get_config("test-tiny"), frames)
 
 
 def test_gemm_ops_and_bytes():
@@ -97,7 +101,7 @@ CAPS = {"max_new_tokens": 96, "max_total_tokens": 96, "max_tokens_per_second": 4
 def test_int8_products_are_part_of_the_model_flops():
     cfg = dict(TINY, max_target_positions=448, caps=CAPS)
     rec, d = _dispatch_of(2, 10)
-    w = work.dispatch_work(cfg, rec, d)
+    w = whisper.dispatch_work(cfg, rec, d)
     frames = 400  # the 8 s bucket
     assert w.frames == frames and w.rows_real == 2
     assert w.new_tokens == 2 * 11  # 10 tokens and the EOT before the cap of 28
@@ -164,3 +168,52 @@ def test_the_reference_imports_nothing_of_the_program():
                                "numpy", "torch", "portbench"), (name, top)
             if isinstance(node, ast.ImportFrom) and node.module.startswith("portbench"):
                 assert node.module.startswith("portbench.reference"), (name, node.module)
+
+
+def _imported_tops(tree) -> list:
+    """Top-level names a module imports: its import statements and its
+    ``importlib.import_module`` / ``__import__`` calls of a literal name."""
+    import ast
+
+    tops = []
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            tops += [a.name.split(".")[0] for a in node.names]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            tops.append((node.module or "").split(".")[0])
+        elif (isinstance(node, ast.Call) and node.args
+              and isinstance(node.args[0], ast.Constant) and isinstance(node.args[0].value, str)
+              and getattr(node.func, "attr", getattr(node.func, "id", None))
+              in ("import_module", "__import__")):
+            tops.append(node.args[0].value.split(".")[0])
+    return tops
+
+
+@pytest.mark.parametrize("part", ["families", "core", "metrics", "reference", "traffic", "."])
+def test_no_file_of_the_benchmark_imports_jax(part):
+    """No file of the benchmark, the model families among them, imports JAX
+    or the JAX package (names compared whole: the port's own name begins with
+    the JAX package's)."""
+    import ast
+    import os
+
+    base = os.path.join(REPO, "portbench", part)
+    files = []
+    for d, _, names in os.walk(base):
+        if part == "." and d != base:
+            continue
+        files += [os.path.join(d, n) for n in names if n.endswith(".py")]
+    assert files
+    for path in files:
+        with open(path) as f:
+            tops = _imported_tops(ast.parse(f.read()))
+        assert not set(tops) & set(spec.FORBIDDEN), (path, sorted(set(tops) & set(spec.FORBIDDEN)))
+
+
+def test_the_import_scan_sees_what_it_forbids():
+    import ast
+
+    src = ("import jax.numpy as jnp\nfrom flax import linen\nimport importlib\n"
+           "importlib.import_module('realtime_whisper_asr_tpu.models')\n__import__('jaxlib')\n"
+           "import realtime_whisper_asr_tpu_torch\nfrom . import spec\n")
+    assert set(_imported_tops(ast.parse(src))) & set(spec.FORBIDDEN) == set(spec.FORBIDDEN)

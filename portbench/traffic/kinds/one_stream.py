@@ -3,8 +3,10 @@ back, a closed loop.
 
 ``VACOnlineASRProcessor`` over an async-pipelined ``OnlineASRProcessor``
 (``core.system.build_one_stream``), fed packets of ``packet_s`` back to
-back: ``insert_audio_chunk``, then ``process_iter``. A packet is due when it
-is fed. The warm-up feeds the stream's first ``warmup_cycles`` cycles of
+back: ``insert_audio_chunk``, then ``process_iter``. The ASR backend under
+it is the configuration's model family's (``ctx.family``): its build, its
+recorder wraps and its loop counters. A packet is due when it is fed. The
+feeds the stream's first ``warmup_cycles`` cycles of
 the mix's utterance lengths (each cycle deals every length once, so the
 warm-up meets every utterance length the window will, and the window opens at
 the start of a cycle whatever the seed's order); the window runs packets
@@ -22,16 +24,16 @@ from portbench.core import speech, system, window
 def run(ctx) -> None:
     import torch
 
-    t, rec = ctx.traffic, ctx.rec
+    t, rec, family = ctx.traffic, ctx.rec, ctx.family
     clock = rec.clock
     ctx.extra["t_build0"] = clock()
-    asr = ctx.asr = system.build_asr(ctx.config, ctx.seed, ctx.device)
+    asr = ctx.asr = family.build(ctx.config, ctx.seed, ctx.device)
     ctx.extra["built_s"] = clock() - ctx.extra["t_build0"]
     vac = system.build_one_stream(asr, t)
     packet_s, audio_s = float(t["packet_s"]), float(t["audio_s"])
     mix = speech.UtteranceMix.from_dict(t)
     stream = speech.make_stream(ctx.seed, 0, mix, audio_s, ctx.device)
-    rec.attach_asr(asr)
+    family.attach(rec, asr)
     rec.attach_stream(0, vac, None)
     packets = window.packets_for(stream, 0, 0.0, packet_s, math.ceil(audio_s / packet_s))
     ctx.extra["packets"] = packets
@@ -57,7 +59,7 @@ def run(ctx) -> None:
     for _ in range(first // int(round(packet_s * speech.SR))):
         tick(False)
     ctx.t_w0 = clock()
-    ctx.loop0 = system.loop_stats(asr)
+    ctx.loop0 = family.loop_stats(asr)
     traced = ctx.tracer is None
     while clock() - ctx.t_w0 < ctx.seconds:
         if not traced and clock() - ctx.t_w0 >= float(t["trace_at"]) * ctx.seconds:
@@ -72,5 +74,5 @@ def run(ctx) -> None:
             continue
         tick(True)
     ctx.t_w1 = clock()
-    ctx.loop1 = system.loop_stats(asr)
+    ctx.loop1 = family.loop_stats(asr)
     ctx.t_end = window.wait_drain(rec, packets, ctx.t_w1, step=lambda: tick(False))
